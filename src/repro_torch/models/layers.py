@@ -1,0 +1,45 @@
+"""Shared layers: norm, gated MLP, embeddings, RoPE (counterpart of
+``repro/models/layers.py``): the variants granite uses (RMSNorm, bias-free
+SwiGLU, tied embeddings, half-split RoPE); ``model._check_supported``
+rejects configs that need others."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig
+
+
+def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
+    """RMSNorm in fp32, cast back to x's dtype (``layers.py:24-37``)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+
+
+def apply_mlp(cfg: ModelConfig, p, x):
+    """SwiGLU: silu(x @ w_gate) * (x @ w_up) @ w_down (``layers.py:72-87``)."""
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def embed_tokens(cfg: ModelConfig, p, tokens):
+    return p["tok"][tokens]
+
+
+def unembed(cfg: ModelConfig, p, x):
+    """Tied unembedding: x @ tok.T (``layers.py:114-122``)."""
+    return x @ p["tok"].T
+
+
+def apply_rope(cfg: ModelConfig, x, positions):
+    """Half-split RoPE. x: (..., S, H, D) or (..., S, D); positions (..., S)."""
+    d = x.shape[-1]
+    inv = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
+    ang = positions[..., None].float() * inv                # (..., S, d/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    if x.dim() == positions.dim() + 2:                      # head axis present
+        sin, cos = sin[..., None, :], cos[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

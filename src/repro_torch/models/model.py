@@ -1,0 +1,211 @@
+"""Dense decoder: init / prefill / paged decode (counterpart of
+``repro/models/model.py``, dense family only).
+
+Parameters are a plain dict of tensors in the reference's layout, so the
+JAX tree converts leaf for leaf (``params_from_jax``): per-segment stacked
+leaves ``params["segs"][i]`` shaped (n_layers, ...), and layer ``l`` of a
+segment is the view ``leaf[l]``. Each dense layer runs
+RMSNorm -> QKV + RoPE -> attention -> wo + residual -> RMSNorm -> SwiGLU +
+residual; then the final norm and the tied unembedding.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models.common import ModelConfig, resolve_device, torch_dtype
+from repro_torch.models.layers import apply_mlp, apply_norm, embed_tokens, unembed
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """The port serves granite's architecture: a dense full-attention GQA
+    decoder with RoPE, RMSNorm, bias-free SwiGLU and tied embeddings."""
+    if (cfg.family != "dense" or cfg.attn_type != "gqa"
+            or cfg.sliding_window > 0 or cfg.pos != "rope"
+            or cfg.norm != "rmsnorm" or cfg.act != "silu" or cfg.use_bias
+            or not cfg.tie_embeddings or cfg.logit_softcap > 0):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}/{cfg.attn_type}): the port serves "
+            "granite's dense GQA architecture only; other families are "
+            "ROADMAP.md, modules still to port: other families")
+
+
+# ======================================================================
+# init
+# ======================================================================
+
+def _dense(gen, shape, fan_in, dtype, device, scale=None):
+    """Truncated-normal fan-in init (the reference's ``dense_init``)."""
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    """Random weights in the reference's layout, drawn from ``generator``
+    (which must live on ``device``)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg)
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def w(shape, fan_in, scale=None):
+        return _dense(generator, shape, fan_in, dt, dev, scale)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    segs = []
+    for _, n in cfg.segments():
+        segs.append({
+            "ln1": {"scale": ones(n, d)},
+            "attn": {"wq": w((n, d, hd), d), "wk": w((n, d, kvd), d),
+                     "wv": w((n, d, kvd), d),
+                     "wo": w((n, hd, d), hd, 1.0 / math.sqrt(hd))},
+            "ln2": {"scale": ones(n, d)},
+            "mlp": {"w_up": w((n, d, f), d),
+                    "w_down": w((n, f, d), f, 1.0 / math.sqrt(f)),
+                    "w_gate": w((n, d, f), d)},
+        })
+    return {"embed": {"tok": w((V, d), V, 1.0 / math.sqrt(d))},
+            "segs": segs, "norm": {"scale": ones(d)}}
+
+
+def params_from_jax(tree, device="cuda"):
+    """Convert the reference's parameter tree (leaves as numpy arrays, e.g.
+    ``np.asarray`` of ``repro.models.model.init_model`` output) into the
+    port's parameters: the same nested layout, leaf for leaf, stacked
+    per segment."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    return conv(tree)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    elif isinstance(x, list):
+        for v in x:
+            yield from _leaves(v)
+    else:
+        yield x
+
+
+def _layer(seg: Dict[str, Any], i: int):
+    return {name: {k: v[i] for k, v in sub.items()} for name, sub in seg.items()}
+
+
+# ======================================================================
+# paged store
+# ======================================================================
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     device="cuda"):
+    """Per-segment stacked page stores (axis 0 = layer within segment).
+    Every layer owns its pages; one block table addresses all layers."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return [A.init_paged_gqa_cache(cfg, n_pages, page_size, layers=n,
+                                   device=dev)
+            for _, n in cfg.segments()]
+
+
+def _layer_cache(seg_cache, i: int):
+    return {k: v[i] for k, v in seg_cache.items()}
+
+
+# ======================================================================
+# forward
+# ======================================================================
+
+def _block(cfg, p, x, positions, mode, cache, block_table, live, prompt_pages):
+    h = apply_norm(cfg, p["ln1"], x)
+    if mode == "decode":
+        a = A.gqa_decode_paged(cfg, p["attn"], h, positions, cache,
+                               block_table, live=live)
+    else:
+        a, (k, v) = A.gqa_full(cfg, p["attn"], h, positions)
+        if cache is not None:
+            A.write_pages(cache, k, v, *prompt_pages)
+    x = x + a
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def _hidden(cfg, params, tokens, mode, positions, cache, block_table, live,
+            prompt_pages):
+    _check_supported(cfg)
+    B, T = tokens.shape
+    x = embed_tokens(cfg, params["embed"], tokens)
+    if positions is None:
+        positions = torch.arange(T, device=tokens.device).expand(B, T)
+    for s, seg in enumerate(params["segs"]):
+        n = seg["ln1"]["scale"].shape[0]
+        for i in range(n):
+            c = _layer_cache(cache[s], i) if cache is not None else None
+            x = _block(cfg, _layer(seg, i), x, positions, mode, c,
+                       block_table, live, prompt_pages)
+    return apply_norm(cfg, params["norm"], x)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, mode: str = "prefill",
+            positions=None, cache=None, block_table=None, live=None,
+            prompt_pages=None):
+    """``tokens``: (B, T) integer ids (decode: (B, 1)).
+
+    prefill: positions (B, T) or None (= arange); with ``cache`` and
+      ``prompt_pages = (page (B, T), off (B, T))`` each layer writes the
+      prompt's K/V into its pages (pad rows aimed at the trash page).
+      Returns logits (B, T, V).
+    decode: positions (B,); ``cache`` is ``init_paged_cache`` output,
+      updated in place; block_table (B, max_pages) int32; live (B,) bool
+      gates dead-lane writes. Returns logits (B, V).
+    """
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(
+            f"mode {mode!r}: the port serves prefill and decode only")
+    x = _hidden(cfg, params, tokens, mode, positions, cache, block_table,
+                live, prompt_pages)
+    logits = unembed(cfg, params["embed"], x)
+    return logits[:, 0] if mode == "decode" else logits
+
+
+def prefill_last(cfg: ModelConfig, params, tokens, lengths, cache=None,
+                 prompt_pages=None):
+    """Whole-prompt prefill returning only each row's last valid logits
+    (B, V); ``lengths`` (B,) valid tokens per row."""
+    x = _hidden(cfg, params, tokens, "prefill", None, cache, None, None,
+                prompt_pages)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    return unembed(cfg, params["embed"], x[rows, lengths - 1])
+
+
+def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,
+                       block_table, sample_fn, *, live=None):
+    """One paged decode step with sampling: ``sample_fn(logits (B, V)) ->
+    (B,)`` next tokens (the serving layer passes its sampler, so models/
+    stays independent of serving/)."""
+    logits = forward(cfg, params, tokens, mode="decode", positions=positions,
+                     cache=cache, block_table=block_table, live=live)
+    return sample_fn(logits)

@@ -6,16 +6,26 @@ GPU, the quickest proof that the port still starts on the card.
 Phases; any failure raises and the script exits non-zero:
   1. device  - CUDA present; the card's name and power limit (nvidia-smi).
   2. build   - nvcc builds the kernels from src/repro_torch/kernels/csrc.
-  3. kernel  - each hand-written kernel against its plain PyTorch version
-               on the card, with its time, the plain version's time and the
-               least time the card could take for the same work.
+  3. kernel  - each hand-written kernel (paged attention, fused RMSNorm,
+               flash-attention prefill) against its plain PyTorch version
+               on the card, with its time, the plain version's time, the
+               least time the card could take for the same work, and the
+               time of the one PyTorch call that computes the same
+               function, where there is one (timed only, never on a path).
   4. small   - the reduced granite config in fp32: the engine on the card
                (kernel path) emits the same greedy tokens as on the CPU
-               (plain path), for fp32 and int8 KV.
+               (plain path), whole-prompt and with chunked prefill (chunk
+               8), and chunked gives the same tokens as whole-prompt; for
+               fp32 and int8 KV.
   5. serve   - the main path: full-width granite-3-2b in bf16 (random
                weights from a seed) served through CarbonAwareScheduler ->
-               paged InferenceEngine -> CUDA paged attention, with launch
-               counts read around the run; then again with int8 KV.
+               paged InferenceEngine -> CUDA kernels (RMSNorm in every
+               forward pass, flash attention in every whole-prompt prefill
+               group, paged attention in every decode step), three times:
+               bf16 KV, int8 KV, and bf16 KV with chunked prefill (chunk
+               48, so chunks straddle the 32-token pages). Around each run
+               the launch counts are zeroed and read, and checked against
+               the engine's forward passes; no plain version may run.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
@@ -34,6 +44,7 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
             torch.float32: 67e12}            # fp32 outside the tensor cores
 TOL = {"bf16": 2e-2, "f32": 2e-5, "int8": 2e-2}
+BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative to the top of a binade
 PROMPTS = [
     "Summarize today's carbon intensity forecast for the western grid.",
     "What is a generation directive?",
@@ -55,16 +66,35 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters=30, warmup=3):
-    """Mean device milliseconds per call, by CUDA events around ``iters``."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(fn, iters=30, warmup=3, graph=True):
+    """Mean device milliseconds per call, by CUDA events around ``iters``
+    calls. With ``graph`` the calls are captured in one CUDA graph and
+    replayed, so the host's cost of issuing each call (tens of
+    microseconds through a Python wrapper) does not hide a short kernel's
+    device time; without it they are issued eagerly, one by one."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -124,7 +154,7 @@ def paged_bound(q, lengths, KVH, D, page, kind):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase():
+def paged_phase():
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -158,13 +188,163 @@ def kernel_phase():
                 return fn(q, k, v, bt, ln, ks, vs)
 
             ms = cuda_ms(lambda: run(paged_attention))
+            eager_ms = cuda_ms(lambda: run(paged_attention), graph=False)
             plain_ms = cuda_ms(lambda: run(ref.paged_attention_ref), iters=10)
             bound_ms, bound_by = paged_bound(q, lengths, KVH, D, page, kind)
             rows[(name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by)
             print(f"kernel paged_attention {name:12s} {kind:4s} lengths={lengths} "
-                  f"err={err:.3e} (tol {TOL[kind]}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"err={err:.3e} (tol {TOL[kind]}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} "
                   f"bound_ms={bound_ms:.5f} ({bound_by}) share={bound_ms / ms:.3f}")
+    return rows
+
+
+def rmsnorm_phase():
+    """Fused RMSNorm: decode (N 8) and prefill (N 2048) rows at granite's
+    d 2048, a ragged N, the reduced d 64; bf16 and f32; with and without
+    the residual."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import fused_rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for name, N, d in (("decode N=8", 8, 2048), ("prefill N=2048", 2048, 2048),
+                       ("ragged N=1000", 1000, 2048), ("reduced N=8", 8, 64)):
+        for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            # input sets rotate past the 50 MB L2, so a timed call reads them
+            # from HBM as the bound assumes (the smallest shapes stay cached)
+            copies = min(16, max(2, math.ceil(128e6 / (2 * N * d * dt.itemsize))))
+            sets = [(torch.randn(N, d, generator=gen, device="cuda").to(dt),
+                     torch.randn(N, d, generator=gen, device="cuda").to(dt))
+                    for _ in range(copies)]
+            x, res = sets[0]
+            scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+            for with_res in (True, False):
+                residual = res if with_res else None
+                cycle = itertools.cycle(sets)
+
+                def run(fn, with_res=with_res, cycle=cycle):
+                    xx, rr = next(cycle)
+                    return fn(xx, scale, rr if with_res else None)
+
+                got = fused_rmsnorm(x, scale, residual)
+                want = ref.fused_rmsnorm_ref(x, scale, residual)
+                torch.cuda.synchronize()
+                err = (got[0].float() - want[0].float()).abs().max().item()
+                # bf16: one ulp of the output scale (the two sum in another
+                # order, and rsqrtf rounds); f32: a few ulp of O(1) outputs
+                tol = (BF16_ULP * want[0].float().abs().max().item()
+                       if kind == "bf16" else TOL["f32"])
+                check(got[0].shape == want[0].shape and got[0].dtype == dt,
+                      f"rmsnorm {name} {kind}: output {got[0].dtype}")
+                check(torch.equal(got[1], want[1]),
+                      f"rmsnorm {name} {kind}: residual sum differs")
+                check(err <= tol, f"rmsnorm {name} {kind}: max abs err {err} > {tol}")
+                ms = cuda_ms(lambda: run(fused_rmsnorm))
+                eager_ms = cuda_ms(lambda: run(fused_rmsnorm), graph=False)
+                plain_ms = cuda_ms(lambda: run(ref.fused_rmsnorm_ref), iters=10)
+                if residual is None:
+                    w = scale.to(dt)
+                    library_ms = cuda_ms(lambda: F.rms_norm(next(cycle)[0], (d,), w, 1e-6))
+                else:
+                    library_ms = None   # no single PyTorch call adds and norms
+                n_io = 4 if with_res else 2          # x, y (and residual, r)
+                nbytes = n_io * N * d * x.element_size() + d * 4
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                tag = "residual" if with_res else "plain"
+                rows[(name, kind, tag)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by="bytes", library_ms=library_ms)
+                lib = "none" if library_ms is None else f"{library_ms:.4f}"
+                print(f"kernel fused_rmsnorm {name:15s} d={d} {kind:4s} {tag:8s} "
+                      f"err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} "
+                      f"library_ms={lib} bound_ms={bound_ms:.5f} (bytes) "
+                      f"share={bound_ms / ms:.3f}")
+    return rows
+
+
+def attention_pairs(Tq, Tk, causal, window):
+    """Unmasked (query, key) pairs of one head: the work the data needs."""
+    i = np.arange(Tq)[:, None]
+    j = np.arange(Tk)[None, :]
+    m = np.ones((Tq, Tk), bool)
+    if causal:
+        m &= j <= i
+    if window > 0:
+        m &= j > i - window
+    return int(m.sum())
+
+
+def flash_phase():
+    """Flash-attention prefill at the main path's prefill group (B 8, T 128)
+    and a long prompt (B 1, T 1024) in bf16 and f32, a ragged T, a windowed
+    and a non-causal case, and the reduced heads. q/k/v are the (B, T, H, D)
+    projections passed as (B, H, T, D) views, as ``gqa_full`` passes them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [
+        # name, B, H, KVH, T, D, causal, window, kinds
+        ("main B=8 T=128", 8, 32, 8, 128, 64, True, 0, ("bf16", "f32")),
+        ("long B=1 T=1024", 1, 32, 8, 1024, 64, True, 0, ("bf16", "f32")),
+        ("ragged B=2 T=200", 2, 32, 8, 200, 64, True, 0, ("bf16",)),
+        ("window=64 T=200", 2, 32, 8, 200, 64, True, 64, ("bf16",)),
+        ("noncausal T=200", 2, 32, 8, 200, 64, False, 0, ("bf16",)),
+        ("reduced B=8 T=128", 8, 4, 2, 128, 16, True, 0, ("bf16", "f32")),
+    ]
+    rows = {}
+    for name, B, H, KVH, T, D, causal, window, kinds in shapes:
+        for kind in kinds:
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            nbytes = (2 * B * H * T * D + 2 * B * KVH * T * D) * dt.itemsize
+            # input sets rotate past the 50 MB L2, as in the paged rows
+            sets = [tuple(torch.randn(B, T, n, D, generator=gen, device="cuda")
+                          .to(dt).transpose(1, 2) for n in (H, KVH, KVH))
+                    for _ in range(min(16, max(2, math.ceil(128e6 / nbytes))))]
+            q, k, v = sets[0]
+            cycle = itertools.cycle(sets)
+
+            def run(fn, **kw):
+                return fn(*next(cycle), **kw)
+
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == dt,
+                  f"flash {name} {kind}: output {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got).all()), f"flash {name} {kind}: non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= TOL[kind], f"flash {name} {kind}: max abs err {err} > {TOL[kind]}")
+            ms = cuda_ms(lambda: run(flash_attention, causal=causal, window=window))
+            eager_ms = cuda_ms(lambda: run(flash_attention, causal=causal, window=window),
+                               graph=False)
+            plain_ms = cuda_ms(lambda: run(ref.flash_attention_ref, causal=causal,
+                                           window=window), iters=10)
+            if window > 0:
+                i = torch.arange(T, device="cuda")
+                mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+                library_ms = cuda_ms(lambda: run(F.scaled_dot_product_attention,
+                                                 attn_mask=mask, enable_gqa=True))
+            else:
+                library_ms = cuda_ms(lambda: run(F.scaled_dot_product_attention,
+                                                 is_causal=causal, enable_gqa=True))
+            flops = 4 * D * B * H * attention_pairs(T, T, causal, window)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_OPS[dt] * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            rows[(name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=library_ms)
+            print(f"kernel flash_attention {name:18s} B={B} H={H} KVH={KVH} T={T} D={D} "
+                  f"causal={causal} window={window} {kind:4s} err={err:.3e} "
+                  f"(tol {TOL[kind]}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"bound_ms={bound_ms:.5f} ({bound_by}) "
+                  f"share={bound_ms / ms:.3f}")
     return rows
 
 
@@ -181,7 +361,8 @@ def to_device(tree, dev):
 
 
 def small_phase():
-    """Reduced granite, fp32: card (kernel) and CPU (plain) engines agree."""
+    """Reduced granite, fp32: card (kernel) and CPU (plain) engines agree,
+    whole-prompt and chunked, and chunked agrees with whole-prompt."""
     from repro_torch.configs import reduced
     from repro_torch.models import model as MD
     from repro_torch.serving.engine import InferenceEngine
@@ -191,65 +372,109 @@ def small_phase():
     gpu_params = to_device(cpu_params, "cuda")
     tok = ByteTokenizer()
     for kv_int8 in (False, True):
-        streams = []
-        for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
-            eng = InferenceEngine(cfg, params, n_slots=4, max_len=128,
-                                  paged=True, page_size=16, decode_block=4,
-                                  kv_int8=kv_int8, device=dev)
-            for p in PROMPTS[:6]:
-                eng.submit(tok.encode(p, bos=True), max_new_tokens=24)
-            eng.run_to_completion()
-            streams.append({f.rid: f.token_ids for f in eng.finished})
-        check(len(streams[0]) == 6 and streams[0] == streams[1],
-              f"reduced kv_int8={kv_int8}: card and CPU token streams differ")
-        print(f"small reduced-granite fp32 kv_int8={kv_int8}: card == CPU greedy "
-              f"tokens for {len(streams[0])} requests "
-              f"({sum(map(len, streams[0].values()))} tokens)")
+        streams = {}
+        for chunk in (0, 8):
+            for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
+                eng = InferenceEngine(cfg, params, n_slots=4, max_len=128,
+                                      paged=True, page_size=16, decode_block=4,
+                                      kv_int8=kv_int8, prefill_chunk=chunk,
+                                      device=dev)
+                # budgets differ, so slots free while other lanes decode
+                # and the chunked engine admits the late requests in chunks
+                for i, p in enumerate(PROMPTS[:6]):
+                    eng.submit(tok.encode(p, bos=True), max_new_tokens=12 + 4 * i)
+                eng.run_to_completion()
+                check(chunk == 0 or eng.chunk_steps > 0,
+                      f"reduced kv_int8={kv_int8} {dev}: no chunk ran")
+                streams[(chunk, dev)] = {f.rid: f.token_ids for f in eng.finished}
+        whole = streams[(0, "cuda")]
+        check(len(whole) == 6, f"reduced kv_int8={kv_int8}: {len(whole)} of 6 finished")
+        for chunk in (0, 8):
+            check(streams[(chunk, "cpu")] == streams[(chunk, "cuda")],
+                  f"reduced kv_int8={kv_int8} chunk={chunk}: card and CPU token "
+                  "streams differ")
+        # (rid, first differing token, length) of chunked against whole-prompt
+        diff = [(rid, next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                           min(len(got), len(want))), len(want))
+                for rid, want in whole.items()
+                if (got := streams[(8, "cuda")].get(rid, [])) != want]
+        # fp32: chunked prefill computes what whole-prompt prefill computes.
+        # int8 KV: a chunk attends over the quantized K/V of the prompt read
+        # back from its pages, where whole-prompt prefill attends over the
+        # unquantized K/V, as in the reference (its gqa_chunk_append against
+        # gqa_full; the CPU tests hold the port's logit gap between the two
+        # to the reference's), so a greedy token near a tie may differ;
+        # card == CPU above is the check that holds the kernels there
+        check(kv_int8 or not diff, f"reduced fp32: chunked differs from whole-prompt "
+              f"as (rid, first differing token, length): {diff}")
+        print(f"small reduced-granite fp32 kv_int8={kv_int8}: card == CPU greedy tokens, "
+              f"whole-prompt and chunked (chunk 8), for {len(whole)} requests "
+              f"({sum(map(len, whole.values()))} tokens); chunked against whole-prompt: "
+              + (f"differs as (rid, first differing token, length) {diff}" if diff
+                 else "identical"))
 
 
 def profile_block(eng, label):
-    """Where a decode step's time goes: one decode block of 8 live lanes
-    timed bare, then once more under torch.profiler, whose kernel events
-    give the device time (the rest of the block's wall time the device
-    sits idle, waiting on the host)."""
+    """Where a decode step's time goes: one block timed bare, then one more
+    under torch.profiler, whose kernel events give the device time (the
+    rest of the block's wall time the device sits idle, waiting on the
+    host). On a chunked engine both blocks are mixed: 6 lanes decode while
+    a late 100-token prompt streams in chunks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for i in range(eng.n_slots):
-        eng.submit([1 + (7 * i + j) % 250 for j in range(100)], max_new_tokens=40)
+    mixed = eng.chunked_admission
+    n_first = eng.n_slots - (2 if mixed else 0)
+    prompts = [[1 + (7 * i + j) % 250 for j in range(100)] for i in range(eng.n_slots)]
+    for p in prompts[:n_first]:
+        eng.submit(p, max_new_tokens=40)
     eng.step()                                 # prefill + first block
+    late = iter(prompts[n_first:])
 
     def block_ms():
+        if mixed:       # arrives while lanes decode: admitted as a chunk task
+            eng.submit(next(late), max_new_tokens=40)
         torch.cuda.synchronize()
-        steps0, t0 = eng.steps, time.monotonic()
+        steps0, chunks0, t0 = eng.steps, eng.chunk_steps, time.monotonic()
         eng.step()
         torch.cuda.synchronize()
-        return (time.monotonic() - t0) * 1e3 / (eng.steps - steps0), eng.steps - steps0
+        k = eng.steps - steps0
+        check(not mixed or eng.chunk_steps > chunks0, "profiled block streamed no chunk")
+        return (time.monotonic() - t0) * 1e3 / k, k
 
     bare_ms, _ = block_ms()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_ms, k = block_ms()
-    check(int(eng.live.sum()) == eng.n_slots, "profiled block lost a lane")
+    check(mixed or int(eng.live.sum()) == eng.n_slots, "profiled block lost a lane")
     eng.run_to_completion()
     eng.finished = []
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / k
-    paged_ms = sum(e.self_device_time_total for e in kern
-                   if "paged_attention" in e.key) / 1e3 / k
+
+    def by_name(part):
+        return sum(e.self_device_time_total for e in kern if part in e.key) / 1e3 / k
+
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"profile {label}: decode block of {eng.n_slots} lanes x {k} steps: wall "
+    what = (f"mixed block of {n_first} decoding lanes + one 100-token prompt in "
+            f"{eng.prefill_chunk}-token chunks" if mixed
+            else f"decode block of {eng.n_slots} lanes")
+    print(f"profile {label}: {what} x {k} steps: wall "
           f"{bare_ms:.2f} ms/step bare, {prof_ms:.2f} under the profiler; device "
           f"kernel time {dev_ms:.3f} ms/step (busy share {dev_ms / bare_ms:.3f} of the "
-          f"bare wall); paged_attention {paged_ms:.3f} ms/step; top kernels: " + "; ".join(
+          f"bare wall); paged_attention {by_name('paged_attention'):.3f} ms/step, "
+          f"rmsnorm {by_name('rmsnorm'):.3f} ms/step; top kernels: " + "; ".join(
               f"{e.key[:60]} {e.self_device_time_total / 1e3 / k:.3f} ms x{e.count / k:g}"
               for e in top))
 
 
-def serve(cfg, params, kv_int8, kernel, plain_calls):
+def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
+    """One main-path run: 12 requests through the scheduler. Returns the
+    launches of each kernel in the run, checked against the engine's
+    forward passes."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.scheduler import CarbonAwareScheduler, ServeRequest
     eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
                           page_size=32, decode_block=8, kv_int8=kv_int8,
-                          device="cuda")
+                          prefill_chunk=prefill_chunk, device="cuda")
     eng.submit(list(range(1, 40)), max_new_tokens=8)     # warm-up request
     eng.run_to_completion()
     eng.finished = []
@@ -260,48 +485,62 @@ def serve(cfg, params, kv_int8, kernel, plain_calls):
     for p in PROMPTS:
         sched.submit(ServeRequest(0, p, max_new_tokens=64,
                                   max_new_by_level=(64, 48, 32)))
-    steps0, tokens0 = eng.steps, eng.decode_tokens
+    groups0, steps0, chunks0 = eng.prefill_groups, eng.steps, eng.chunk_steps
+    tokens0 = eng.decode_tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
-    plain_calls[0] = 0
+    for kern in kernels.values():
+        kern.launches = 0
+    plain_calls.clear()
     t0 = time.monotonic()
     sched.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches, plain = kernel.launches, plain_calls[0]
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    plain = dict(plain_calls)
+    groups = eng.prefill_groups - groups0
     steps = eng.steps - steps0
+    chunks = eng.chunk_steps - chunks0
+    label = (f"granite-3-2b bf16 kv_int8={kv_int8}"
+             + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else ""))
     fin = sched.finished
-    check(not sched.rejected, f"rejected: {sched.rejected}")
-    check(len(fin) == len(PROMPTS), f"{len(fin)} of {len(PROMPTS)} finished")
+    check(not sched.rejected, f"{label}: rejected: {sched.rejected}")
+    check(len(fin) == len(PROMPTS), f"{label}: {len(fin)} of {len(PROMPTS)} finished")
     check(all(0 <= t < cfg.vocab_size for f in fin for t in f.token_ids),
-          "token outside the vocabulary")
-    check(all(f.gen_tokens >= 1 for f in fin), "a request generated nothing")
+          f"{label}: token outside the vocabulary")
+    check(all(f.gen_tokens >= 1 for f in fin), f"{label}: a request generated nothing")
     levels = sorted({f.directive_level for f in fin})
-    check(levels == [0, 1, 2], f"directive levels {levels}")
-    check(launches == cfg.n_layers * steps,
-          f"kernel launches {launches} != {cfg.n_layers} x {steps} decode steps")
-    check(plain == 0, f"plain paged attention called {plain} times on the card")
+    check(levels == [0, 1, 2], f"{label}: directive levels {levels}")
+    check(not prefill_chunk or chunks > 0, f"{label}: no prompt chunk ran")
+    L = cfg.n_layers
+    want = {"paged_attention": L * steps, "flash_attention": L * groups,
+            "fused_rmsnorm": (2 * L + 1) * (groups + steps + chunks)}
+    check(launches == want, f"{label}: launches {launches} != expected {want} from "
+          f"{groups} prefill groups, {steps} decode steps, {chunks} chunk passes")
+    check(sum(plain.values()) == 0, f"{label}: plain versions called on the card: {plain}")
     decode_s = sum(f.decode_s for f in fin)
     dec_tokens = eng.decode_tokens - tokens0
     kv = eng.kv_stats()
-    print(f"serve granite-3-2b bf16 kv_int8={kv_int8}: {len(fin)} requests, levels "
+    print(f"serve {label}: {len(fin)} requests, levels "
           f"{[f.directive_level for f in fin]}, gen tokens {[f.gen_tokens for f in fin]}; "
-          f"decode steps {steps}, kernel launches {launches} (= {cfg.n_layers} x steps), "
-          f"plain calls {plain}; decode tokens {dec_tokens} in {decode_s:.3f} s = "
+          f"forward passes: {groups} prefill groups, {steps} decode steps, {chunks} "
+          f"chunk passes; launches {launches} (= expected), plain calls {plain or 0}; "
+          f"decode tokens {dec_tokens} in {decode_s:.3f} s = "
           f"{dec_tokens / decode_s:.1f} tok/s; wall {wall:.3f} s "
           f"({sum(f.gen_tokens for f in fin) / wall:.1f} gen tok/s); peak pages "
           f"{kv['peak_pages_in_use']} of {kv['n_pages']} "
           f"({kv['peak_kv_bytes_in_use'] / 2**20:.1f} MiB KV); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_block(eng, f"granite-3-2b bf16 kv_int8={kv_int8}")
+    profile_block(eng, label)
     return launches
 
 
 def serve_phase():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rmsnorm import fused_rmsnorm
     from repro_torch.models import model as MD
     cfg = get_config("granite_3_2b")
     t0 = time.monotonic()
@@ -316,21 +555,30 @@ def serve_phase():
     logits = MD.forward(cfg, params, toks, mode="prefill")
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    # count calls of the plain version: the main path must never take it
-    plain_calls = [0]
-    plain_fn = ref.paged_attention_ref
+    kernels = {"paged_attention": paged_attention, "flash_attention": flash_attention,
+               "fused_rmsnorm": fused_rmsnorm}
+    # count calls of the plain versions: the main path must never take them
+    plain_calls = {}
+    originals = {name: getattr(ref, f"{name}_ref") for name in kernels}
 
-    def counted(*a, **kw):
-        plain_calls[0] += 1
-        return plain_fn(*a, **kw)
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            plain_calls[name] = plain_calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
 
-    ref.paged_attention_ref = counted
+    for name, fn in originals.items():
+        setattr(ref, f"{name}_ref", counted(name, fn))
+    totals = dict.fromkeys(kernels, 0)
     try:
-        launches = serve(cfg, params, False, paged_attention, plain_calls)
-        serve(cfg, params, True, paged_attention, plain_calls)
+        for kv_int8, chunk in ((False, 0), (True, 0), (False, 48)):
+            for name, n in serve(cfg, params, kv_int8, chunk, kernels,
+                                 plain_calls).items():
+                totals[name] += n
     finally:
-        ref.paged_attention_ref = plain_fn
-    return launches
+        for name, fn in originals.items():
+            setattr(ref, f"{name}_ref", fn)
+    return totals
 
 
 def main():
@@ -352,17 +600,25 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"build: {line.strip()}")
-    rows = kernel_phase()
+    paged_rows = paged_phase()
+    rms_rows = rmsnorm_phase()
+    flash_rows = flash_phase()
     small_phase()
     launches = serve_phase()
-    main_row = rows[("main B=8", "bf16")]
-    kernels = [dict(name="paged_attention", route="cuda",
-                    source="src/repro_torch/kernels/csrc/paged_attention.cu",
-                    replaces="src/repro/kernels/paged_attention.py:78",
-                    launches=launches, max_abs_err=main_row["max_abs_err"],
-                    ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-                    bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-                    library_ms=None)]
+    mains = {   # each kernel at the shape its main-path calls take
+        "paged_attention": (paged_rows[("main B=8", "bf16")], "paged_attention.py:78"),
+        "fused_rmsnorm": (rms_rows[("decode N=8", "bf16", "residual")], "rmsnorm.py:30"),
+        "flash_attention": (flash_rows[("main B=8 T=128", "bf16")], "flash_attention.py:85"),
+    }
+    kernels = []
+    for name, (row, tpu) in mains.items():
+        csrc = "rmsnorm" if name == "fused_rmsnorm" else name
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{csrc}.cu",
+            replaces=f"src/repro/kernels/{tpu}", launches=launches[name],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms")))
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

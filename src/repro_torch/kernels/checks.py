@@ -1,0 +1,30 @@
+"""Argument checks shared by the kernels' wrappers: a wrapper takes CUDA
+tensors of the layout its kernel reads and raises on anything else (it
+never hands a tensor to the plain version)."""
+from __future__ import annotations
+
+import torch
+
+
+def check_tensor(kernel: str, name: str, t, ndim: int, dtype=None,
+                 contiguous: bool = True) -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor")
+    if t.dim() != ndim:
+        raise ValueError(f"{kernel}: {name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_one_device(kernel: str, *tensors) -> None:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{kernel}: tensors on several devices {devices}")
+
+
+def check_launch(kernel: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")

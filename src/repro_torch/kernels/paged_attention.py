@@ -8,27 +8,18 @@ take; there is no fallback. The plain version is ``ref.paged_attention_ref``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.checks import check_launch, check_one_device, check_tensor
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 HEAD_DIMS = (16, 64)  # the reduced config's and granite's
 MAX_PAGE = 32
 MAX_GROUP = 8
-
-
-def _check(name: str, t: torch.Tensor, ndim: int, dtype=None) -> None:
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"paged_attention: {name} must be a CUDA tensor")
-    if t.dim() != ndim:
-        raise ValueError(f"paged_attention: {name} must be {ndim}-D, got "
-                         f"shape {tuple(t.shape)}")
-    if dtype is not None and t.dtype != dtype:
-        raise ValueError(f"paged_attention: {name} must be {dtype}, got "
-                         f"{t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"paged_attention: {name} must be contiguous")
+_check = functools.partial(check_tensor, "paged_attention")
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths,
@@ -69,10 +60,8 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths,
             f"H={H} KVH={KVH}")
     if block_table.shape[0] != B or lengths.shape[0] != B or B == 0:
         raise ValueError("paged_attention: block_table/lengths rows != B >= 1")
-    devices = {t.device for t in (q, k_pages, v_pages, block_table, lengths,
-                                  *((k_scale, v_scale) if quantized else ()))}
-    if len(devices) != 1:
-        raise ValueError(f"paged_attention: tensors on several devices {devices}")
+    check_one_device("paged_attention", q, k_pages, v_pages, block_table,
+                     lengths, k_scale, v_scale)
     out = torch.empty_like(q)
     err = build.load().paged_attention_fwd(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -82,8 +71,7 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths,
         B, H, KVH, D, P, page, block_table.shape[1],
         _DTYPE_CODES[q.dtype], _DTYPE_CODES[kv_dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: cudaError {err}")
+    check_launch("paged_attention", err)
     paged_attention.launches += 1
     return out
 

@@ -36,3 +36,43 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, vv).reshape(B, H, D)
     return out.to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Prefill attention in the reference layout, fp32 scores and fp32 P·V.
+
+    q: (B, H, Tq, D); k/v: (B, KVH, Tk, D); head h reads KV head
+    h // (H // KVH). Masks are top-left aligned (query i, key j):
+    causal keeps j <= i, window > 0 keeps j > i - window. Returns
+    (B, H, Tq, D) in q's dtype.
+    """
+    B, H, Tq, D = q.shape
+    KVH, Tk = k.shape[1], k.shape[2]
+    g = H // KVH
+    qg = q.reshape(B, KVH, g, Tq, D).float()
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) / math.sqrt(D)
+    qpos = torch.arange(Tq, device=q.device)[:, None]
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd", p, v.float())
+    return out.reshape(B, H, Tq, D).to(q.dtype)
+
+
+def fused_rmsnorm_ref(x, scale, residual=None, eps: float = 1e-6):
+    """(rmsnorm(x + residual) * scale, x + residual) for rows x (N, d).
+
+    The sum is rounded to x's dtype and the rounded sum is normalized, as
+    the reference model's block does (``x = x + a; apply_norm(x)``); the
+    reduction runs in fp32 and y is cast to x's dtype.
+    """
+    r = x if residual is None else x + residual
+    rf = r.float()
+    ms = rf.square().mean(dim=-1, keepdim=True)
+    y = rf * torch.rsqrt(ms + eps) * scale.float()
+    return y.to(x.dtype), r

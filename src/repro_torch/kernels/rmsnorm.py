@@ -1,0 +1,59 @@
+"""Wrapper of the hand-written CUDA fused residual + RMSNorm kernel
+(``csrc/rmsnorm.cu``), the port of the TPU kernel
+``repro/kernels/rmsnorm.py``.
+
+It takes CUDA tensors only and raises on anything the kernel does not
+take; there is no fallback. The plain version is ``ref.fused_rmsnorm_ref``.
+``fused_rmsnorm.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.checks import check_launch, check_one_device, check_tensor
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 2048
+_check = functools.partial(check_tensor, "fused_rmsnorm")
+
+
+def fused_rmsnorm(x, scale, residual=None, *, eps: float = 1e-6):
+    """x (N, d) f32/bf16, contiguous and 16-byte aligned, with d a multiple
+    of 16 bytes and at most 2048; scale (d,) f32; residual optional (N, d)
+    like x. Returns (y, r): r = x + residual rounded to x's dtype (x
+    itself without a residual), y = rmsnorm(r) * scale in x's dtype."""
+    _check("x", x, 2)
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"fused_rmsnorm: x must be f32 or bf16, got {x.dtype}")
+    N, d = x.shape
+    _check("scale", scale, 1, torch.float32)
+    if residual is not None:
+        _check("residual", residual, 2, x.dtype)
+        if residual.shape != x.shape:
+            raise ValueError(f"fused_rmsnorm: residual {tuple(residual.shape)} "
+                             f"!= x {tuple(x.shape)}")
+    vec = 16 // x.element_size()
+    if N == 0 or d > MAX_D or d % vec or scale.shape != (d,):
+        raise ValueError(
+            f"fused_rmsnorm: kernel takes N >= 1 rows of d <= {MAX_D} with d % "
+            f"{vec} == 0 and scale (d,); got x {tuple(x.shape)} scale "
+            f"{tuple(scale.shape)}")
+    if x.data_ptr() % 16 or (residual is not None and residual.data_ptr() % 16):
+        raise ValueError("fused_rmsnorm: x and residual must be 16-byte aligned")
+    check_one_device("fused_rmsnorm", x, scale, residual)
+    y = torch.empty_like(x)
+    r = torch.empty_like(x) if residual is not None else None
+    err = build.load().fused_rmsnorm_fwd(
+        x.data_ptr(), residual.data_ptr() if residual is not None else None,
+        scale.data_ptr(), y.data_ptr(), r.data_ptr() if r is not None else None,
+        N, d, eps, _DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch("fused_rmsnorm", err)
+    fused_rmsnorm.launches += 1
+    return y, (r if r is not None else x)
+
+
+fused_rmsnorm.launches = 0

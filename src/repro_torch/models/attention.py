@@ -1,10 +1,16 @@
 """GQA attention for the dense family (counterpart of
 ``repro/models/attention.py``).
 
-Two modes:
-  * prefill — whole prompt, causal, plain matmul + fp32 softmax (the
-    reference computes it outside any Pallas kernel); the prompt's K/V can
-    be written straight into pages.
+Three modes:
+  * prefill — whole prompt, causal, through ``kernels.ops.flash_attention``
+    (the CUDA flash kernel on the card, its plain version on the CPU):
+    fp32 scores and fp32 P·V, the arithmetic of the reference's full
+    configs (``attn_impl="blocked"``, ``blocked_attn.flash_sdpa``); the
+    prompt's K/V can be written straight into pages.
+  * chunk   — one lane's prompt chunk: append its K/V through the lane's
+    block-table row, then attend over the lane's pages with the
+    reference's ``_sdpa`` arithmetic, in plain PyTorch on the card too, as
+    the reference computes it outside any Pallas kernel.
   * decode  — one token per row: append K/V through the block table, then
     attend over the slot's pages through ``kernels.ops.paged_attention``
     (the CUDA kernel on the card, the plain version on the CPU).
@@ -62,19 +68,37 @@ def _project_qkv(cfg: ModelConfig, p, x, positions):
     return q, k, v
 
 
-def gqa_full(cfg: ModelConfig, p, x, positions):
-    """Causal prefill attention over the whole sequence. Returns
-    (y, (k, v)) with k/v (B, T, n_kv, Dh)."""
-    B, T = x.shape[:2]
-    h, kv_h, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    qg = q.reshape(B, T, kv_h, h // kv_h, dh)
-    scores = torch.einsum("btkgd,bskd->bkgts", qg, k).float() / math.sqrt(dh)
-    mask = positions[:, None, :] <= positions[:, :, None]          # (B,T,S)
+def _sdpa(q, k, v, mask):
+    """The reference's ``_sdpa`` (``attention.py:117-130``): scores rounded
+    to the compute dtype before the fp32 softmax, probabilities rounded to
+    v's dtype before P·V. q (B,Tq,KV,G,D), k/v (B,Tk,KV,D), mask (B,Tq,Tk)."""
+    scores = torch.einsum("btkgd,bskd->bkgts", q, k).float()
+    scores = scores / math.sqrt(q.shape[-1])
     scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
-    return out.reshape(B, T, h * dh) @ p["wo"], (k, v)
+    return torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
+
+
+def gqa_full(cfg: ModelConfig, p, x, positions):
+    """Causal prefill attention over the whole sequence. Returns
+    (y, (k, v)) with k/v (B, T, n_kv, Dh).
+
+    Always the reference's blocked arithmetic (fp32 scores and P·V),
+    whatever ``cfg.attn_impl`` says: at fp32 the xla path computes the
+    same, and ``model._check_supported`` refuses xla at bf16.
+
+    The mask is by index (query t sees keys s <= t), as in the flash
+    kernel; ``positions`` only rotate q and k, so rows whose positions are
+    one offset plus arange(T), such as the engine's prefill, mask as the
+    reference's position mask does."""
+    B, T = x.shape[:2]
+    h, dh = cfg.n_heads, cfg.head_dim
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    # (B, T, H, D) -> the kernel's (B, H, T, D) as views, no copy; the
+    # output comes back with q's strides, so the reshape below is free
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True)
+    return out.transpose(1, 2).reshape(B, T, h * dh) @ p["wo"], (k, v)
 
 
 # ======================================================================
@@ -130,6 +154,46 @@ def _paged_cache_write(cache, new_k, new_v, positions, block_table, live):
         ok = ok & live
     page = torch.where(ok, entry.long(), trash)
     write_pages(cache, new_k[:, 0], new_v[:, 0], page, (positions % ps).long())
+
+
+def gqa_chunk_append(cfg: ModelConfig, p, x, positions, valid, lane, cache,
+                     *, block_table):
+    """Append one lane's prompt chunk and attend causally over everything
+    that lane has written (the paged branch of the reference's
+    ``gqa_chunk_append``, ``attention.py:262-359``).
+
+    x: (1, C, d) chunk hidden states; positions: (C,) absolute positions;
+    valid: (C,) bool (False rows are pad); lane: the block-table row this
+    chunk owns; block_table: (rows, max_pages) int32 (-1 = unmapped).
+    ``cache`` is one layer's page store, written in place: pad rows and
+    unmapped entries go to the trash page. The read gathers the lane's
+    pages (entries clamped to real pages; rows past q_pos are masked by
+    absolute index) and attends with the reference's ``_sdpa`` arithmetic.
+    """
+    C = x.shape[1]
+    h, dh = cfg.n_heads, cfg.head_dim
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions[None, :])
+    trash = cache["k"].shape[0] - 1          # == the reference's page count P
+    ps = cache["k"].shape[1]
+    bt = block_table[lane]                                     # (max_pages,)
+    entry = bt[(positions // ps).clamp(0, bt.shape[0] - 1)]
+    page = torch.where(valid & (entry >= 0), entry.long(), trash)
+    write_pages(cache, k_new[0], v_new[0], page, (positions % ps).long())
+    safe = bt.long().clamp(0, trash - 1)
+    kv_h = cache["k"].shape[2]
+    kp = cache["k"][safe].reshape(-1, kv_h, dh)
+    vp = cache["v"][safe].reshape(-1, kv_h, dh)
+    dt = x.dtype
+    if "k_scale" in cache:
+        k = dequantize_kv(kp, cache["k_scale"][safe].reshape(-1, kv_h), dt)
+        v = dequantize_kv(vp, cache["v_scale"][safe].reshape(-1, kv_h), dt)
+    else:
+        k, v = kp.to(dt), vp.to(dt)
+    kidx = torch.arange(k.shape[0], device=x.device)
+    mask = kidx[None, None, :] <= positions[None, :, None]
+    qg = q.reshape(1, C, kv_h, h // kv_h, dh)
+    out = _sdpa(qg, k[None], v[None], mask)
+    return out.reshape(1, C, h * dh) @ p["wo"]
 
 
 def gqa_decode_paged(cfg: ModelConfig, p, x, positions, cache, block_table,

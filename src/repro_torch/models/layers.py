@@ -1,20 +1,33 @@
 """Shared layers: norm, gated MLP, embeddings, RoPE (counterpart of
 ``repro/models/layers.py``): the variants granite uses (RMSNorm, bias-free
 SwiGLU, tied embeddings, half-split RoPE); ``model._check_supported``
-rejects configs that need others."""
+rejects configs that need others. Every norm runs through
+``kernels.ops.fused_rmsnorm`` (the CUDA kernel on the card, its plain
+version on the CPU)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
+
+
+def add_norm(cfg: ModelConfig, p, x, residual=None, eps: float = 1e-6):
+    """(rmsnorm(x + residual) * scale, x + residual) over the last axis in
+    one fused pass; the sum is rounded to x's dtype before the norm, as
+    the reference block's ``x = x + a; apply_norm(x)`` rounds it."""
+    d = x.shape[-1]
+    y, r = ops.fused_rmsnorm(
+        x.reshape(-1, d).contiguous(), p["scale"],
+        None if residual is None else residual.reshape(-1, d).contiguous(),
+        eps=eps)
+    return y.reshape(x.shape), r.reshape(x.shape)
 
 
 def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):
     """RMSNorm in fp32, cast back to x's dtype (``layers.py:24-37``)."""
-    xf = x.float()
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
+    return add_norm(cfg, p, x, None, eps)[0]
 
 
 def apply_mlp(cfg: ModelConfig, p, x):

@@ -6,7 +6,11 @@ JAX tree converts leaf for leaf (``params_from_jax``): per-segment stacked
 leaves ``params["segs"][i]`` shaped (n_layers, ...), and layer ``l`` of a
 segment is the view ``leaf[l]``. Each dense layer runs
 RMSNorm -> QKV + RoPE -> attention -> wo + residual -> RMSNorm -> SwiGLU +
-residual; then the final norm and the tied unembedding.
+residual; then the final norm and the tied unembedding. Every norm goes
+through the fused RMSNorm op (``layers.add_norm``), which also adds the
+attention residual in the same pass: 2·n_layers + 1 norm launches per
+forward. A prompt chunk (``prefill_chunk_step``) runs the same block over
+one lane's chunk against its pages.
 """
 from __future__ import annotations
 
@@ -18,12 +22,16 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models.common import ModelConfig, resolve_device, torch_dtype
-from repro_torch.models.layers import apply_mlp, apply_norm, embed_tokens, unembed
+from repro_torch.models.layers import (add_norm, apply_mlp, apply_norm,
+                                       embed_tokens, unembed)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     """The port serves granite's architecture: a dense full-attention GQA
-    decoder with RoPE, RMSNorm, bias-free SwiGLU and tied embeddings."""
+    decoder with RoPE, RMSNorm, bias-free SwiGLU and tied embeddings.
+    Prefill attention always computes the reference's blocked arithmetic
+    (fp32 scores and P·V); at fp32 the reference's ``attn_impl="xla"``
+    computes the same, at lower precision it rounds the scores first."""
     if (cfg.family != "dense" or cfg.attn_type != "gqa"
             or cfg.sliding_window > 0 or cfg.pos != "rope"
             or cfg.norm != "rmsnorm" or cfg.act != "silu" or cfg.use_bias
@@ -32,6 +40,11 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name} ({cfg.family}/{cfg.attn_type}): the port serves "
             "granite's dense GQA architecture only; other families are "
             "ROADMAP.md, modules still to port: other families")
+    if cfg.attn_impl == "xla" and cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.name}: attn_impl='xla' at {cfg.dtype} rounds attention "
+            "scores to the compute dtype; the port computes prefill "
+            "attention in fp32 only, as attn_impl='blocked' does")
 
 
 # ======================================================================
@@ -149,8 +162,21 @@ def _block(cfg, p, x, positions, mode, cache, block_table, live, prompt_pages):
         a, (k, v) = A.gqa_full(cfg, p["attn"], h, positions)
         if cache is not None:
             A.write_pages(cache, k, v, *prompt_pages)
-    x = x + a
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    h2, x = add_norm(cfg, p["ln2"], a, x)       # x + a, then its norm
+    return x + apply_mlp(cfg, p["mlp"], h2)
+
+
+def block_apply_chunk(cfg: ModelConfig, p, x, positions, valid, lane, cache,
+                      *, block_table):
+    """One block over a single lane's prompt chunk (1, C, d)
+    (``model.py:352-365``): attention appends the chunk's K/V to the
+    lane's pages and attends over everything written so far; the FFN is
+    position-wise as usual."""
+    h = apply_norm(cfg, p["ln1"], x)
+    a = A.gqa_chunk_append(cfg, p["attn"], h, positions, valid, lane, cache,
+                           block_table=block_table)
+    h2, x = add_norm(cfg, p["ln2"], a, x)
+    return x + apply_mlp(cfg, p["mlp"], h2)
 
 
 def _hidden(cfg, params, tokens, mode, positions, cache, block_table, live,
@@ -199,6 +225,31 @@ def prefill_last(cfg: ModelConfig, params, tokens, lengths, cache=None,
                 prompt_pages)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     return unembed(cfg, params["embed"], x[rows, lengths - 1])
+
+
+def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0: int,
+                       clen: int, lane: int, cache, *, block_table):
+    """Run ONE prompt chunk for one lane through the whole stack
+    (``model.py:368-404``).
+
+    tokens: (C,) chunk token ids (pad beyond ``clen``); pos0: absolute
+    position of tokens[0]; clen: valid length (0 = every write goes to the
+    trash page); lane: block-table row. ``cache`` (``init_paged_cache``
+    output) is written in place. Returns the logits (V,) at position
+    pos0 + clen - 1, meaningful on a request's final chunk."""
+    _check_supported(cfg)
+    C = tokens.shape[0]
+    idx = torch.arange(C, device=tokens.device)
+    positions, valid = pos0 + idx, idx < clen
+    x = embed_tokens(cfg, params["embed"], tokens[None])
+    for s, seg in enumerate(params["segs"]):
+        for i in range(seg["ln1"]["scale"].shape[0]):
+            x = block_apply_chunk(cfg, _layer(seg, i), x, positions, valid,
+                                  lane, _layer_cache(cache[s], i),
+                                  block_table=block_table)
+    x = apply_norm(cfg, params["norm"], x)
+    last = min(max(clen - 1, 0), C - 1)
+    return unembed(cfg, params["embed"], x[0, last])
 
 
 def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,

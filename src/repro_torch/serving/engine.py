@@ -2,24 +2,34 @@
 (counterpart of ``repro/serving/engine.py``, paged greedy path).
 
 A fixed set of ``n_slots`` slots. Queued requests are admitted while their
-worst-case page reservation fits the page budget, prefilled as whole
-prompts in batches grouped by padded length (the prompt K/V is written
-straight into pages), and then decoded in blocks of up to ``decode_block``
-greedy steps. Within a block every step runs on the device with no host
-round trip: per-lane positions, last tokens, generation counters and the
-live mask are device tensors, and the finish rule (EOS, token budget, KV
-cap) is applied in-block. The host reads the block's tokens back with ONE
-device-to-host copy per block. The block length shrinks to the soonest
-deterministic finish (``_pick_k``), so a freed slot is refilled at the
-earliest step it can matter. Decode attention runs the hand-written CUDA
-paged-attention kernel on the card (``kernels/ops.py``); a CPU engine runs
-its plain version.
+worst-case page reservation fits the page budget. On an idle engine they
+are prefilled as whole prompts in batches grouped by padded length (the
+prompt K/V is written straight into pages; prefill attention runs the
+hand-written CUDA flash kernel on the card). Admitted requests are then
+decoded in blocks of up to ``decode_block`` greedy steps. Within a block
+every step runs on the device with no host round trip: per-lane
+positions, last tokens, generation counters and the live mask are device
+tensors, and the finish rule (EOS, token budget, KV cap) is applied
+in-block. The host reads the block's tokens back with ONE device-to-host
+copy per block. The block length shrinks to the soonest deterministic
+finish (``_pick_k``), so a freed slot is refilled at the earliest step it
+can matter. Decode attention runs the hand-written CUDA paged-attention
+kernel on the card (``kernels/ops.py``); a CPU engine runs the kernels'
+plain versions.
 
-Host bookkeeping (admission, page growth, finish order, block tables)
-follows the reference line for line, so on the same traffic the port maps
-the same pages and emits the same greedy tokens. Still to port
-(ROADMAP.md): the dense layout, chunked prefill, the prefix cache, sampled
-modes, tensor parallelism and fault injection into lanes.
+**Chunked prefill** (``prefill_chunk > 0``): a request that arrives while
+lanes decode is not prefilled in a whole-prompt stall. It is admitted as a
+chunk task, and each step of the next blocks runs the decode step of
+every lane plus at most one ``prefill_chunk``-token chunk of its prompt
+(``models.model.prefill_chunk_step``), with pages mapped per chunk. The
+final chunk's first token and the lane's flip to live stay on the device,
+so first tokens arrive through the same one copy per block.
+
+Host bookkeeping (admission, page growth, chunk schedule, finish order,
+block tables) follows the reference line for line, so on the same traffic
+the port maps the same pages and emits the same greedy tokens. Still to
+port (ROADMAP.md): the dense layout, the prefix cache, sampled modes,
+tensor parallelism and fault injection into lanes.
 """
 from __future__ import annotations
 
@@ -71,6 +81,18 @@ class RequestState:
 
 
 @dataclasses.dataclass
+class _ChunkTask:
+    """An admitted request still prefilling: its prompt streams into the
+    decode blocks ``chunk`` tokens per step; ``next`` is the first prompt
+    position not yet dispatched."""
+    slot: int
+    ids: List[int]
+    plen: int
+    next: int = 0
+    chunk: int = 0
+
+
+@dataclasses.dataclass
 class FinishedRequest:
     rid: int
     token_ids: List[int]
@@ -106,7 +128,6 @@ class InferenceEngine:
         random numbers. ``params`` must already live on ``device``."""
         for flag, on, item in (
                 ("paged=False", not paged, "dense KV layout"),
-                ("prefill_chunk > 0", prefill_chunk > 0, "chunked prefill"),
                 ("prefix_cache=True", prefix_cache, "radix prefix cache"),
                 ("tp_degree > 1", tp_degree > 1, "tensor-parallel decode")):
             if on:
@@ -131,6 +152,8 @@ class InferenceEngine:
         self.max_len = max_len
         self.eos_id = eos_id
         self.decode_block = decode_block
+        self.prefill_chunk = prefill_chunk
+        self._task: Optional[_ChunkTask] = None
         self.tok = tokenizer or ByteTokenizer()
         max_pages = (max_len + page_size - 1) // page_size
         # default budget: the dense layout's worst-case footprint
@@ -159,7 +182,13 @@ class InferenceEngine:
         # high-water marks, sampled at maximal residency inside step()
         self.peak_concurrent = 0
         self.peak_pages_in_use = 0
+        # forward passes, by kind: whole-prompt prefill groups, decode
+        # steps (``steps``) and prompt chunks (``chunk_steps``)
+        self.prefill_groups = 0
         self.steps = 0
+        self.chunk_steps = 0           # prompt chunks streamed into blocks
+        self.pages_grown_chunked = 0   # pages mapped per chunk, not at insert
+        self.prefill_tokens_computed = 0   # prompt tokens actually prefilled
         self.decode_tokens = 0
         self.decode_syncs = 0          # host round trips on the decode path
         self.last_decode_s = 0.0       # decode wall time, last dispatch
@@ -213,6 +242,13 @@ class InferenceEngine:
         signal scheduler dispatch keys on."""
         return len(self.queue) + sum(s is not None for s in self.slots)
 
+    @property
+    def chunked_admission(self) -> bool:
+        """True when this engine admits new work by streaming prompt
+        chunks into the live decode blocks (no whole-prompt stall): the
+        signal the scheduler's dispatch ordering keys on."""
+        return self.prefill_chunk > 0
+
     @staticmethod
     def _bucket(n: int) -> int:
         return max(16, _next_pow2(n))
@@ -232,9 +268,16 @@ class InferenceEngine:
 
     def _try_prefill(self) -> None:
         """Fill free slots from the queue (FIFO, page-budget gated), then
-        prefill the admitted requests grouped by padded prompt length."""
+        prefill the admitted requests grouped by padded prompt length.
+        With chunked prefill and live lanes, the queue head is admitted as
+        the chunk task instead (one at a time); the whole-prompt path runs
+        only on an idle engine."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free or not self.queue:
+            return
+        if self.prefill_chunk > 0 and self.live.any():
+            if self._task is None:
+                self._admit_chunk_task(free[0])
             return
         taken: List[Tuple[int, RequestState, List[int]]] = []
         for slot in free:
@@ -285,6 +328,8 @@ class InferenceEngine:
             torch.from_numpy(lengths).to(dev), cache=self.cache,
             prompt_pages=(torch.from_numpy(page_ids).to(dev),
                           torch.from_numpy(offs).to(dev)))
+        self.prefill_groups += 1
+        self.prefill_tokens_computed += int(lengths.sum())
         # the one device-to-host copy per prefill group
         firsts = greedy_sample(logits).tolist()
         t_first = time.monotonic()
@@ -304,6 +349,33 @@ class InferenceEngine:
             self.live[slot] = alive
             if not alive:
                 self._finish(slot)
+
+    def _admit_chunk_task(self, slot: int) -> None:
+        """Admit the queue head into ``slot`` as the chunk task: host
+        mirrors are pre-staged (position at prompt_len, lane dead) and the
+        prompt streams into the following blocks. The lane flips live, and
+        its first token is emitted, inside the block its final chunk lands
+        in."""
+        st = self.queue[0]
+        ids = st.prompt_ids[: self.max_len - st.max_new_tokens - 1]
+        need = self._pages_for(len(ids), st.max_new_tokens)
+        if self._committed + need > self.pages.n_pages:
+            return                 # wait for pages to free up (FIFO)
+        self._committed += need
+        st.reserved_pages = need
+        self.queue.pop(0)
+        st.prompt_len = len(ids)
+        st.slot = slot
+        st.generated = []
+        self.prefill_tokens_computed += len(ids)
+        self.slots[slot] = st
+        self.positions[slot] = len(ids)
+        self.last_token[slot] = 0
+        self.live[slot] = False
+        self.gen_count[slot] = 0
+        self.max_new[slot] = st.max_new_tokens
+        self._task = _ChunkTask(slot=slot, ids=ids, plen=len(ids),
+                                chunk=self.prefill_chunk)
 
     # ------------------------------------------------------------------
     def _finish(self, slot: int) -> None:
@@ -337,26 +409,59 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> int:
-        """One continuous-batching dispatch: refill free slots, then run up
-        to ``decode_block`` greedy decode steps over the live lanes with one
+        """One continuous-batching dispatch: refill free slots (chunk-task
+        admission when lanes are live, grouped whole-prompt prefill when
+        idle), then run up to ``decode_block`` greedy steps, each decoding
+        every live lane and streaming at most one prompt chunk, with one
         device-to-host copy at the end. Returns tokens emitted (0 if idle)."""
         self._try_prefill()
         self.peak_concurrent = max(
             self.peak_concurrent, sum(s is not None for s in self.slots))
         self.peak_pages_in_use = max(self.peak_pages_in_use,
                                      self.pages.pages_in_use())
-        if not self.live.any():
+        task = self._task
+        if not self.live.any() and task is None:
             return 0
-        rows = np.nonzero(self.live)[0]
-        k = self._pick_k()
+        lanes = set(int(i) for i in np.nonzero(self.live)[0])
+        if task is not None:
+            lanes.add(task.slot)
+        rows = np.sort(np.fromiter(lanes, np.int64))
+        k = self._pick_k() if self.live.any() else self.decode_block
+        # per-step prompt chunks (pos0, length, final) of the chunk task
+        chunks: List[Tuple[int, int, bool]] = []
+        finishing = False
+        nxt_p = 0
+        if task is not None:
+            rem = -(-(task.plen - task.next) // task.chunk)
+            # shrink the block toward the chunks actually left
+            k = max(1, min(k, _next_pow2(rem)))
+            ctoks = np.zeros((k, task.chunk), np.int64)
+            nxt_p = task.next
+            for s in range(k):
+                if nxt_p < task.plen:
+                    n = min(task.chunk, task.plen - nxt_p)
+                    ctoks[s, :n] = task.ids[nxt_p:nxt_p + n]
+                    chunks.append((nxt_p, n, nxt_p + n == task.plen))
+                    nxt_p += n
+                    self.chunk_steps += 1
+            finishing = nxt_p == task.plen
         # grow each live slot's page map to cover this block's appends
         # (bounded by the slot's own cap, so growth never exceeds the
         # admission-time reservation and can never throw here)
-        for i in rows:
+        for i in np.nonzero(self.live)[0]:
             st = self.slots[i]
             self.pages.ensure_capacity(
                 int(i), min(int(self.positions[i]) + k,
                             self._slot_cap(st.prompt_len, st.max_new_tokens)))
+        if task is not None:
+            # per-chunk page growth: map only what this block writes
+            # (prompt chunks, plus up to k decode appends after an
+            # in-block transition) instead of the whole prompt at once
+            st = self.slots[task.slot]
+            tgt = min(nxt_p + (k if finishing else 0),
+                      self._slot_cap(st.prompt_len, st.max_new_tokens))
+            self.pages_grown_chunked += self.pages.ensure_capacity(
+                task.slot, tgt)
         self.peak_pages_in_use = max(self.peak_pages_in_use,
                                      self.pages.pages_in_use())
         dev = self.device
@@ -365,10 +470,14 @@ class InferenceEngine:
         pos = torch.from_numpy(self.positions[rows]).to(dev)
         gc = torch.from_numpy(self.gen_count[rows]).to(dev)
         max_new = torch.from_numpy(self.max_new[rows]).to(dev)
-        live = torch.ones(len(rows), dtype=torch.bool, device=dev)
+        live = torch.from_numpy(self.live[rows]).to(dev)
+        if task is not None:
+            lane = int(np.searchsorted(rows, task.slot))
+            lane_mask = torch.from_numpy(rows == task.slot).to(dev)
+            ctoks_dev = torch.from_numpy(ctoks).to(dev)
         toks, emitted = [], []
         t_dec = time.monotonic()
-        for _ in range(k):
+        for s in range(k):
             nxt = MD.decode_sample_step(self.cfg, self.params, last[:, None],
                                         pos, self.cache, bt, greedy_sample,
                                         live=live)
@@ -379,10 +488,31 @@ class InferenceEngine:
             # or KV-region cap (prompt_len + gen >= max_len - 1)
             hit = ((nxt == self.eos_id) | (gc2 >= max_new)
                    | (pos2 >= self.max_len - 2))
-            toks.append(nxt)
-            emitted.append(live)
-            live = live & ~hit
-            last, pos, gc = nxt, pos2, gc2
+            live2 = live & ~hit
+            emit_t, emit_v = nxt, live
+            if s < len(chunks):
+                pos0, n, final = chunks[s]
+                logits = MD.prefill_chunk_step(
+                    self.cfg, self.params, ctoks_dev[s], pos0, n, lane,
+                    self.cache, block_table=bt)
+                if final:
+                    # the first token and the lane's flip to live stay on
+                    # the device; they reach the host with the block
+                    first = greedy_sample(logits[None])
+                    plen = pos0 + n
+                    alive = first != self.eos_id
+                    if not (self.max_new[task.slot] > 1
+                            and plen + 1 < self.max_len - 1):
+                        alive = torch.zeros_like(alive)
+                    nxt = torch.where(lane_mask, first, nxt)
+                    pos2 = torch.where(lane_mask, plen, pos2)
+                    gc2 = torch.where(lane_mask, 1, gc2)
+                    live2 = torch.where(lane_mask, alive, live2)
+                    emit_t = torch.where(lane_mask, first, emit_t)
+                    emit_v = emit_v | lane_mask
+            toks.append(emit_t)
+            emitted.append(emit_v)
+            live, last, pos, gc = live2, nxt, pos2, gc2
         # the single device-to-host copy for this block of <= k*bs tokens
         block = torch.cat([torch.stack(toks), torch.stack(emitted).long(),
                            live.long()[None]]).cpu().numpy()
@@ -415,8 +545,23 @@ class InferenceEngine:
             if news:
                 self.last_token[i] = news[-1]
             self.live[i] = bool(live_final[b])
+            # a dead lane finishes only if it emitted in this block: the
+            # chunk-task lane sits occupied but dead until its final chunk
             if not live_final[b] and news:
                 finish_order.append((int(np.nonzero(col)[0][-1]), i))
+        if task is not None:
+            i = task.slot
+            task.next = nxt_p
+            if finishing:
+                # the first token was emitted from inside the block: it
+                # lands at the pre-staged position, not a position advance
+                self.positions[i] -= 1
+                st = self.slots[i]
+                if st.t_first_token == 0.0:
+                    st.t_first_token = time.monotonic()
+                self._task = None
+            self.pages.lengths[i] = (int(self.positions[i]) if finishing
+                                     else task.next)
         # finish in (step-within-block, slot) order so completion order is
         # identical to single-step execution
         for _, i in sorted(finish_order):
@@ -444,6 +589,9 @@ class InferenceEngine:
                 self.pages.release(i)
                 self._committed -= st.reserved_pages
                 st.reserved_pages = 0
+        # a mid-prefill chunk task leaves with its slot; its prompt ids are
+        # verbatim, so a resubmission elsewhere restarts identically
+        self._task = None
         return out
 
     def evict(self, rid: int) -> Optional[RequestState]:
@@ -463,6 +611,8 @@ class InferenceEngine:
                 self.pages.release(i)
                 self._committed -= st.reserved_pages
                 st.reserved_pages = 0
+                if self._task is not None and self._task.slot == i:
+                    self._task = None
                 return st
         return None
 

@@ -97,7 +97,7 @@ def test_page_budget_gates_admission_not_completion(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(paged=False), dict(paged=True, prefill_chunk=8),
+    dict(paged=False), dict(paged=True, prefill_chunk=8, prefix_cache=True),
     dict(paged=True, prefix_cache=True), dict(paged=True, tp_degree=2)])
 def test_options_not_yet_ported_raise(models, kwargs):
     _, cfg, _, params = models

@@ -5,13 +5,18 @@ GPU, the quickest proof that the port still starts on the card.
 
 Phases; any failure raises and the script exits non-zero:
   1. device  - CUDA present; the card's name and power limit (nvidia-smi).
-  2. build   - nvcc builds the kernels from src/repro_torch/kernels/csrc.
+  2. build   - nvcc builds the kernels from src/repro_torch/kernels/csrc;
+               ptxas's registers, shared memory and spills per kernel, and
+               the count of tensor-core (HMMA) instructions in the SASS of
+               the bf16 flash kernels (cuobjdump, where the toolkit has it).
   3. kernel  - each hand-written kernel (paged attention, fused RMSNorm,
                flash-attention prefill) against its plain PyTorch version
                on the card, with its time, the plain version's time, the
                least time the card could take for the same work, and the
                time of the one PyTorch call that computes the same
                function, where there is one (timed only, never on a path).
+               bf16 flash outputs are held to one bf16 ulp of the output
+               scale (and 2e-2) on under 1 % of the outputs (fp32 P·V).
   4. small   - the reduced granite config in fp32: the engine on the card
                (kernel path) emits the same greedy tokens as on the CPU
                (plain path), whole-prompt and with chunked prefill (chunk
@@ -25,13 +30,17 @@ Phases; any failure raises and the script exits non-zero:
                bf16 KV, int8 KV, and bf16 KV with chunked prefill (chunk
                48, so chunks straddle the 32-token pages). Around each run
                the launch counts are zeroed and read, and checked against
-               the engine's forward passes; no plain version may run.
+               the engine's forward passes; no plain version may run. One
+               decode block of each run and one prefill group (8 x 128)
+               are profiled for their device time.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
 import itertools
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -44,7 +53,6 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
             torch.float32: 67e12}            # fp32 outside the tensor cores
 TOL = {"bf16": 2e-2, "f32": 2e-5, "int8": 2e-2}
-BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative to the top of a binade
 PROMPTS = [
     "Summarize today's carbon intensity forecast for the western grid.",
     "What is a generation directive?",
@@ -59,6 +67,11 @@ PROMPTS = [
     "Define grams of CO2 per kilowatt-hour.",
     "Name a benefit of continuous batching.",
 ]
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude x: 2^(e - 7) for x in [2^e, 2^(e + 1))."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8) if x > 0 else 0.0
 
 
 def check(cond, msg):
@@ -98,6 +111,57 @@ def cuda_ms(fn, iters=30, warmup=3, graph=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def demangle(names):
+    """C++ kernel symbols as ``name<template arguments>``, by c++filt where
+    it exists (else as they are)."""
+    exe = shutil.which("c++filt")
+    if exe is None or not names:
+        return list(names)
+    out = subprocess.run([exe], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60)
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or len(lines) != len(names):
+        return list(names)
+    return [ln.split("(anonymous namespace)::", 1)[-1].split("(")[0] for ln in lines]
+
+
+def ptxas_report(log):
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: its name, its
+    registers, barriers and shared memory, its stack and spills."""
+    fns, facts = [], []
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fns.append(m.group(1))
+            facts.append([])
+        elif fns and ("registers" in line or "spill" in line):
+            facts[-1].append(line.split(":", 1)[-1].strip())
+    return [f"{name}: {'; '.join(f)}" for name, f in zip(demangle(fns), facts)]
+
+
+def sass_hmma_counts(lib):
+    """{kernel: HMMA instructions in its SASS} of the built library, by
+    cuobjdump, or None where the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    exe = shutil.which("cuobjdump")
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "cuobjdump").exists():
+        exe = str(Path(CUDA_HOME) / "bin" / "cuobjdump")
+    if exe is None:
+        return None
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def nvidia_smi():
@@ -201,17 +265,21 @@ def paged_phase():
 
 
 def rmsnorm_phase():
-    """Fused RMSNorm: decode (N 8) and prefill (N 2048) rows at granite's
-    d 2048, a ragged N, the reduced d 64; bf16 and f32; with and without
-    the residual."""
+    """Fused RMSNorm: decode (N 8), chunk-pass (N 48) and prefill (N 2048)
+    rows at granite's d 2048, a ragged N, the reduced d 64; bf16 and f32
+    (the chunk rows bf16 only); with and without the residual."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import fused_rmsnorm
+    from repro_torch.kernels.rmsnorm import fused_rmsnorm, launch_shape
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for name, N, d in (("decode N=8", 8, 2048), ("prefill N=2048", 2048, 2048),
-                       ("ragged N=1000", 1000, 2048), ("reduced N=8", 8, 64)):
-        for kind, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    both = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    for name, N, d, kinds in (("decode N=8", 8, 2048, both),
+                              ("chunk N=48", 48, 2048, both[:1]),
+                              ("prefill N=2048", 2048, 2048, both),
+                              ("ragged N=1000", 1000, 2048, both),
+                              ("reduced N=8", 8, 64, both)):
+        for kind, dt in kinds:
             # input sets rotate past the 50 MB L2, so a timed call reads them
             # from HBM as the bound assumes (the smallest shapes stay cached)
             copies = min(16, max(2, math.ceil(128e6 / (2 * N * d * dt.itemsize))))
@@ -234,7 +302,7 @@ def rmsnorm_phase():
                 err = (got[0].float() - want[0].float()).abs().max().item()
                 # bf16: one ulp of the output scale (the two sum in another
                 # order, and rsqrtf rounds); f32: a few ulp of O(1) outputs
-                tol = (BF16_ULP * want[0].float().abs().max().item()
+                tol = (bf16_ulp(want[0].float().abs().max().item())
                        if kind == "bf16" else TOL["f32"])
                 check(got[0].shape == want[0].shape and got[0].dtype == dt,
                       f"rmsnorm {name} {kind}: output {got[0].dtype}")
@@ -257,7 +325,9 @@ def rmsnorm_phase():
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by="bytes", library_ms=library_ms)
                 lib = "none" if library_ms is None else f"{library_ms:.4f}"
+                blocks, threads = launch_shape(N, d, dt.itemsize)
                 print(f"kernel fused_rmsnorm {name:15s} d={d} {kind:4s} {tag:8s} "
+                      f"launch={blocks}x{threads} "
                       f"err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
                       f"plain_ms={plain_ms:.4f} "
                       f"library_ms={lib} bound_ms={bound_ms:.5f} (bytes) "
@@ -317,7 +387,22 @@ def flash_phase():
                   f"flash {name} {kind}: output {tuple(got.shape)} {got.dtype}")
             check(bool(torch.isfinite(got).all()), f"flash {name} {kind}: non-finite")
             err = (got.float() - want.float()).abs().max().item()
-            check(err <= TOL[kind], f"flash {name} {kind}: max abs err {err} > {TOL[kind]}")
+            if kind == "bf16":
+                # the criterion of test_bf16_prefill_attention_matches_blocked_
+                # reference: P·V in fp32 (the kernel splits P into two bf16
+                # terms) moves an output by at most one bf16 ulp of the output
+                # scale, and few of them; P rounded to one bf16 term moves
+                # 35-40 % of them (tests/test_torch_flash_numerics.py); never
+                # above the absolute bound of the other bf16 checks
+                tol = min(TOL["bf16"], bf16_ulp(want.float().abs().max().item()))
+                differ = (got != want).float().mean().item()
+                check(err <= tol and differ < 0.01,
+                      f"flash {name} bf16: max abs err {err} (tol {tol}), share of "
+                      f"outputs differing {differ} (limit 0.01)")
+                crit = f"(tol {tol:.3e}) differ={differ:.4%} (limit 1%)"
+            else:
+                check(err <= TOL[kind], f"flash {name} {kind}: max abs err {err} > {TOL[kind]}")
+                crit = f"(tol {TOL[kind]})"
             ms = cuda_ms(lambda: run(flash_attention, causal=causal, window=window))
             eager_ms = cuda_ms(lambda: run(flash_attention, causal=causal, window=window),
                                graph=False)
@@ -341,7 +426,7 @@ def flash_phase():
                                       library_ms=library_ms)
             print(f"kernel flash_attention {name:18s} B={B} H={H} KVH={KVH} T={T} D={D} "
                   f"causal={causal} window={window} {kind:4s} err={err:.3e} "
-                  f"(tol {TOL[kind]}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
+                  f"{crit} ms={ms:.4f} eager_ms={eager_ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
                   f"bound_ms={bound_ms:.5f} ({bound_by}) "
                   f"share={bound_ms / ms:.3f}")
@@ -466,6 +551,39 @@ def profile_block(eng, label):
               for e in top))
 
 
+def profile_prefill(cfg, params, B=8, T=128):
+    """Device time of one whole-prompt prefill group at the main path's
+    shape (8 prompts padded to 128 tokens, no cache writes) under
+    torch.profiler, with the flash and RMSNorm kernels' shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as MD
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(1, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+    lengths = torch.full((B,), T, device="cuda")
+    MD.prefill_last(cfg, params, toks, lengths)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    MD.prefill_last(cfg, params, toks, lengths)
+    torch.cuda.synchronize()
+    bare_ms = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        MD.prefill_last(cfg, params, toks, lengths)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+
+    def by_name(part):
+        return sum(e.self_device_time_total for e in kern if part in e.key) / 1e3
+
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"profile prefill group B={B} T={T}: wall {bare_ms:.2f} ms bare; device kernel "
+          f"time {dev_ms:.3f} ms (busy share {dev_ms / bare_ms:.3f} of the bare wall); "
+          f"flash_attention {by_name('flash_attention'):.3f} ms, rmsnorm "
+          f"{by_name('rmsnorm'):.3f} ms; top kernels: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+
+
 def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     """One main-path run: 12 requests through the scheduler. Returns the
     launches of each kernel in the run, checked against the engine's
@@ -555,6 +673,7 @@ def serve_phase():
     logits = MD.forward(cfg, params, toks, mode="prefill")
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    profile_prefill(cfg, params)
     kernels = {"paged_attention": paged_attention, "flash_attention": flash_attention,
                "fused_rmsnorm": fused_rmsnorm}
     # count calls of the plain versions: the main path must never take them
@@ -597,9 +716,19 @@ def main():
     log = build.build()
     build.load()
     print(f"build: {time.monotonic() - t0:.1f} s -> {build.library_path().name}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}")
+    for line in ptxas_report(log):
+        print(f"build: ptxas {line}")
+    hmma = sass_hmma_counts(build.library_path())
+    if hmma is None:
+        print("build: SASS HMMA count of the bf16 flash kernels: not available "
+              "(no cuobjdump)")
+    else:
+        # the tensor cores in use: every bf16 flash instantiation issues HMMA
+        flash = {fn: n for fn, n in hmma.items() if "flash_attention_bf16" in fn}
+        check(flash and all(flash.values()),
+              f"bf16 flash kernels without HMMA in their SASS: {flash}")
+        for fn, n in zip(demangle(list(flash)), flash.values()):
+            print(f"build: SASS HMMA count {n} in {fn}")
     paged_rows = paged_phase()
     rms_rows = rmsnorm_phase()
     flash_rows = flash_phase()
@@ -619,6 +748,11 @@ def main():
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row.get("library_ms")))
+        if name == "fused_rmsnorm":
+            # 41 of the 81 norms of a forward pass (each layer's ln1 and the
+            # final norm) take no residual: F.rms_norm computes those
+            kernels[-1]["library_ms_no_residual"] = rms_rows[
+                ("decode N=8", "bf16", "plain")]["library_ms"]
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -99,7 +99,7 @@ def load() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.fused_rmsnorm_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6

@@ -19,27 +19,29 @@
 // Bound on this card: bytes. About four flops per element against two
 // (x, y) or four (x, residual, r, y) element reads and writes, far below
 // the H100's ~295 flop/byte ridge; the least time is those bytes plus
-// the scale over 3.35 TB/s.
+// the scale over 3.35 TB/s. At decode (N 8) the bytes take 0.04 us and
+// the kernel costs what one launch and one memory round trip cost.
 //
-// What this simple design does about that bound:
-//  * one warp per row, four rows per 128-thread block; the last block
-//    masks a ragged tail of rows, so any N is taken;
-//  * each lane loads its share of the row in 16-byte vectors and keeps it
-//    in registers (d <= 2048), so every element is read once and written
-//    once, and the residual sum never goes back to memory before the norm;
-//  * the sum of squares is a warp-shuffle reduction: no shared memory and
-//    no barrier.
-// At decode (N = live lanes, 8) only two blocks run: the kernel is bound
-// by its launch there, not by the card.
+// Design. One block per row, one 16-byte vector of the row per thread
+// (d * sizeof(T) / 16 threads rounded up to whole warps: 256 for d 2048
+// bf16), so N rows run as N blocks and every element is read once and
+// written once. Each thread issues all its loads (x, the residual and the
+// matching scale vectors) before any arithmetic: one dependent memory
+// round trip per launch, none after the reduction. The sum of squares is a
+// warp-shuffle reduction, then one exchange through shared memory between
+// the row's warps. The wrapper computes the block size
+// (kernels/rmsnorm.py `launch_shape`); this file only checks that it
+// covers the row. Rows sharing a block (four rows, up to eight vectors a
+// thread) lost to this mapping at every N from 64 to 8192 on an H100 80GB
+// HBM3 at 700 W (PERF.md), so no other mapping is kept.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRowsPerBlock = 4;
-constexpr int kThreads = 32 * kRowsPerBlock;
 constexpr int kMaxD = 2048;
+constexpr int kMaxThreads = 1024;
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -56,75 +58,72 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
                const float* __restrict__ scale, T* __restrict__ y, T* __restrict__ r_out,
-               int N, int d, float eps) {
-  constexpr int kVec = 16 / sizeof(T);            // elements per 16-byte load
-  constexpr int kMaxVecs = kMaxD / kVec / 32;     // 16-byte loads per lane
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= N) return;  // ragged tail: the whole warp leaves together
-  const int nvec = d / kVec;
-  const size_t base = static_cast<size_t>(row) * d;
-  const uint4* xv = reinterpret_cast<const uint4*>(x + base);
-  const uint4* rv = res != nullptr ? reinterpret_cast<const uint4*>(res + base) : nullptr;
+               int d, float eps) {
+  constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte vector
+  constexpr int kScaleVecs = kVec / 4;   // float4 scale vectors per vector
+  __shared__ float part[kMaxThreads / 32];
+  const int j = threadIdx.x;             // this thread's vector of the row
+  const bool live = j < d / kVec;        // the last warp may overhang the row
+  const size_t base = static_cast<size_t>(blockIdx.x) * d;
 
-  float vals[kMaxVecs][kVec];
-  float ss = 0.f;
+  // every load first: x, residual, scale
+  uint4 xs = make_uint4(0, 0, 0, 0);
+  uint4 rs = make_uint4(0, 0, 0, 0);
+  float4 sc[kScaleVecs];
+  if (live) {
+    xs = reinterpret_cast<const uint4*>(x + base)[j];
+    if (res != nullptr) rs = reinterpret_cast<const uint4*>(res + base)[j];
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    const int j = lane + 32 * i;
-    if (j < nvec) {
-      const uint4 a = xv[j];
-      const T* ae = reinterpret_cast<const T*>(&a);
-      if (rv != nullptr) {
-        const uint4 b = rv[j];
-        const T* be = reinterpret_cast<const T*>(&b);
-        uint4 o;
-        T* oe = reinterpret_cast<T*>(&o);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const T s = from_float<T>(to_float(ae[e]) + to_float(be[e]));
-          oe[e] = s;
-          vals[i][e] = to_float(s);
-        }
-        reinterpret_cast<uint4*>(r_out + base)[j] = o;
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) vals[i][e] = to_float(ae[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) ss = fmaf(vals[i][e], vals[i][e], ss);
+    for (int c = 0; c < kScaleVecs; ++c) {
+      sc[c] = reinterpret_cast<const float4*>(scale)[j * kScaleVecs + c];
     }
   }
+
+  // r = x + residual rounded to T (written out), and the sum of squares of r
+  T* xe = reinterpret_cast<T*>(&xs);
+  if (live && res != nullptr) {
+    const T* re = reinterpret_cast<const T*>(&rs);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) xe[e] = from_float<T>(to_float(xe[e]) + to_float(re[e]));
+    reinterpret_cast<uint4*>(r_out + base)[j] = xs;
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) ss = fmaf(to_float(xe[e]), to_float(xe[e]), ss);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (blockDim.x > 32) {  // the row spans several warps
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    ss = 0.f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) ss += part[w];
+  }
   const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
-  uint4* yv = reinterpret_cast<uint4*>(y + base);
+
+  if (live) {
+    const float* se = reinterpret_cast<const float*>(&sc[0]);
+    uint4 o;
+    T* oe = reinterpret_cast<T*>(&o);
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
-    const int j = lane + 32 * i;
-    if (j < nvec) {
-      uint4 o;
-      T* oe = reinterpret_cast<T*>(&o);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        oe[e] = from_float<T>(vals[i][e] * inv * scale[j * kVec + e]);
-      }
-      yv[j] = o;
-    }
+    for (int e = 0; e < kVec; ++e) oe[e] = from_float<T>(to_float(xe[e]) * inv * se[e]);
+    reinterpret_cast<uint4*>(y + base)[j] = o;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* res, const float* scale, void* y, void* r_out,
-                   int N, int d, float eps, cudaStream_t stream) {
-  if (d % (16 / static_cast<int>(sizeof(T))) != 0) return cudaErrorInvalidValue;
-  const int blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
-  rmsnorm_kernel<T><<<blocks, kThreads, 0, stream>>>(
+                   int N, int d, float eps, int threads, cudaStream_t stream) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  // whole warps, one vector a thread, covering the row
+  if (d % kVec != 0 || threads % 32 != 0 || threads > kMaxThreads || threads * kVec < d) {
+    return cudaErrorInvalidValue;
+  }
+  rmsnorm_kernel<T><<<N, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(res), scale, static_cast<T*>(y),
-      static_cast<T*>(r_out), N, d, eps);
+      static_cast<T*>(r_out), d, eps);
   return cudaGetLastError();
 }
 
@@ -132,19 +131,25 @@ cudaError_t launch(const void* x, const void* res, const float* scale, void* y, 
 
 // C entry point, loaded with ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing; returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a shape or type the kernel does not take).
-// `residual` and `r_out` are both null (plain RMSNorm) or both set. x,
-// residual, y and r_out must be 16-byte aligned and row-contiguous.
+// (cudaErrorInvalidValue for a shape, type or block size the kernel does
+// not take). `residual` and `r_out` are both null (plain RMSNorm) or both
+// set. x, residual, scale, y and r_out must be 16-byte aligned and
+// row-contiguous. `threads` is the block size the wrapper chose
+// (kernels/rmsnorm.py `launch_shape`): whole warps, one 16-byte vector of
+// the row each.
 extern "C" int fused_rmsnorm_fwd(const void* x, const void* residual, const void* scale,
                                  void* y, void* r_out, int N, int d, float eps, int dtype,
-                                 void* stream) {
+                                 int threads, void* stream) {
   if (N <= 0 || d <= 0 || d > kMaxD || (residual == nullptr) != (r_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == kF32) err = launch<float>(x, residual, sc, y, r_out, N, d, eps, s);
-  else if (dtype == kBF16) err = launch<__nv_bfloat16>(x, residual, sc, y, r_out, N, d, eps, s);
+  if (dtype == kF32) {
+    err = launch<float>(x, residual, sc, y, r_out, N, d, eps, threads, s);
+  } else if (dtype == kBF16) {
+    err = launch<__nv_bfloat16>(x, residual, sc, y, r_out, N, d, eps, threads, s);
+  }
   return static_cast<int>(err);
 }

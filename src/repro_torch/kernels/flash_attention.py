@@ -22,10 +22,27 @@ HEAD_DIMS = (16, 64)  # the reduced config's and granite's
 _check = functools.partial(check_tensor, "flash_attention", contiguous=False)
 
 
+def check_cp_async_rows(name: str, t) -> None:
+    """The bf16 kernel copies each row of D elements into shared memory in
+    16-byte pieces (``cp.async``), so the tensor's base address and its
+    (batch, head, token) strides must be multiples of 16 bytes (the stride
+    of a dimension of size 1 is never used). Raises ValueError naming the
+    constraint otherwise; any device."""
+    item = t.element_size()
+    strides = [s * item for s in t.stride()[:3]]
+    if t.data_ptr() % 16 or any(s % 16 for s, n in zip(strides, t.shape) if n > 1):
+        raise ValueError(
+            f"flash_attention: {name} rows must be 16-byte aligned for the "
+            f"kernel's 16-byte cp.async copies; got base address % 16 = "
+            f"{t.data_ptr() % 16} and (batch, head, token) strides of "
+            f"{strides} bytes")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q (B, H, Tq, D), k/v (B, KVH, Tk, D) on the card, f32 or bf16 alike,
     any strides with a unit stride along D (so a (B, T, H, D) tensor passes
-    as its ``transpose(1, 2)`` view, with no copy). Returns (B, H, Tq, D)
+    as its ``transpose(1, 2)`` view, with no copy); in bf16 the bases and
+    strides 16-byte aligned (``check_cp_async_rows``). Returns (B, H, Tq, D)
     in q's dtype, laid out with q's strides."""
     _check("q", q, 4)
     if q.dtype not in _DTYPE_CODES:
@@ -44,6 +61,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             f"window {window}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v need a unit stride along D")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_cp_async_rows(name, t)
     check_one_device("flash_attention", q, k, v)
     out = torch.empty_like(q)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)

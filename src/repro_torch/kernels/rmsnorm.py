@@ -20,11 +20,21 @@ MAX_D = 2048
 _check = functools.partial(check_tensor, "fused_rmsnorm")
 
 
+def launch_shape(N: int, d: int, itemsize: int):
+    """The kernel's launch shape for N rows of d elements of ``itemsize``
+    bytes: (blocks, threads per block). One block per row, one 16-byte
+    vector of the row per thread, in whole warps, so every load of a row is
+    in flight at once and N rows run as N blocks."""
+    nvec = d * itemsize // 16
+    return N, -(-nvec // 32) * 32
+
+
 def fused_rmsnorm(x, scale, residual=None, *, eps: float = 1e-6):
     """x (N, d) f32/bf16, contiguous and 16-byte aligned, with d a multiple
-    of 16 bytes and at most 2048; scale (d,) f32; residual optional (N, d)
-    like x. Returns (y, r): r = x + residual rounded to x's dtype (x
-    itself without a residual), y = rmsnorm(r) * scale in x's dtype."""
+    of 16 bytes and at most 2048; scale (d,) f32, 16-byte aligned; residual
+    optional (N, d) like x. Returns (y, r): r = x + residual rounded to x's
+    dtype (x itself without a residual), y = rmsnorm(r) * scale in x's
+    dtype."""
     _check("x", x, 2)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_rmsnorm: x must be f32 or bf16, got {x.dtype}")
@@ -41,15 +51,17 @@ def fused_rmsnorm(x, scale, residual=None, *, eps: float = 1e-6):
             f"fused_rmsnorm: kernel takes N >= 1 rows of d <= {MAX_D} with d % "
             f"{vec} == 0 and scale (d,); got x {tuple(x.shape)} scale "
             f"{tuple(scale.shape)}")
-    if x.data_ptr() % 16 or (residual is not None and residual.data_ptr() % 16):
-        raise ValueError("fused_rmsnorm: x and residual must be 16-byte aligned")
+    if any(t is not None and t.data_ptr() % 16 for t in (x, residual, scale)):
+        raise ValueError("fused_rmsnorm: x, residual and scale must be 16-byte "
+                         "aligned (the kernel reads 16-byte vectors)")
     check_one_device("fused_rmsnorm", x, scale, residual)
     y = torch.empty_like(x)
     r = torch.empty_like(x) if residual is not None else None
+    _, threads = launch_shape(N, d, x.element_size())
     err = build.load().fused_rmsnorm_fwd(
         x.data_ptr(), residual.data_ptr() if residual is not None else None,
         scale.data_ptr(), y.data_ptr(), r.data_ptr() if r is not None else None,
-        N, d, eps, _DTYPE_CODES[x.dtype],
+        N, d, eps, _DTYPE_CODES[x.dtype], threads,
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch("fused_rmsnorm", err)
     fused_rmsnorm.launches += 1

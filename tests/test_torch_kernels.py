@@ -19,9 +19,11 @@ from repro.kernels.rmsnorm import fused_rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.models.attention import dequantize_kv as jdequantize_kv  # noqa: E402
 from repro.models.attention import quantize_kv as jquantize_kv  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import check_cp_async_rows  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as cuda_paged  # noqa: E402
 from repro_torch.kernels.rmsnorm import fused_rmsnorm as cuda_rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import launch_shape as rmsnorm_launch_shape  # noqa: E402
 from repro_torch.models.attention import dequantize_kv, quantize_kv  # noqa: E402
 
 # fp32 against fp32: the two frameworks sum in another order (einsum vs
@@ -290,3 +292,60 @@ def test_rmsnorm_and_flash_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_flash(_t(q), _t(k), _t(v))
     assert (cuda_rmsnorm.launches, cuda_flash.launches) == (b0, f0)
+
+
+def _bf16_views(kind):
+    """(B, H, T, D) bf16 views of (B, T, H, D) storage, as gqa_full passes
+    them: aligned, with a token stride of 130 bytes, or with the base one
+    element past a 16-byte boundary."""
+    B, T, H, D = 2, 40, 4, 64
+    if kind == "aligned":
+        return torch.zeros(B, T, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    if kind == "odd token stride":
+        return torch.zeros(B, T, H, D + 1, dtype=torch.bfloat16)[..., :D].transpose(1, 2)
+    flat = torch.zeros(B * T * H * D + 8, dtype=torch.bfloat16)
+    return flat[1:1 + B * T * H * D].view(B, T, H, D).transpose(1, 2)
+
+
+@pytest.mark.parametrize("kind", ["aligned", "odd token stride", "misaligned base"])
+def test_flash_wrapper_checks_rows_for_16_byte_copies(kind):
+    """The bf16 kernel copies rows with 16-byte cp.async: an aligned strided
+    view passes; a view whose token stride or base breaks the 16-byte
+    alignment raises, naming the constraint."""
+    t = _bf16_views(kind)
+    if kind == "aligned":
+        check_cp_async_rows("q", t)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned.*cp.async"):
+            check_cp_async_rows("q", t)
+
+
+@pytest.mark.parametrize("N,d,itemsize,shape", [
+    # one block per row, one 16-byte vector a thread, whole warps
+    (1, 2048, 2, (1, 256)),
+    (8, 2048, 2, (8, 256)),
+    (48, 2048, 2, (48, 256)),
+    (8, 2048, 4, (8, 512)),
+    (8, 64, 2, (8, 32)),
+    (2048, 2048, 2, (2048, 256)),
+    (2048, 2048, 4, (2048, 512)),
+    (1000, 2048, 2, (1000, 256)),
+])
+def test_rmsnorm_launch_shape_follows_the_row_count(N, d, itemsize, shape):
+    """(blocks, threads per block) the RMSNorm wrapper launches with."""
+    assert rmsnorm_launch_shape(N, d, itemsize) == shape
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_launch_shape_is_one_the_kernel_takes(itemsize):
+    """Every launch shape the wrapper picks, for any row count and any d up
+    to 2048 that is a multiple of 16 bytes, is one ``csrc/rmsnorm.cu``
+    accepts: one block per row, whole warps of at most 1024 threads, one
+    16-byte vector of the row a thread, covering the row with no idle warp."""
+    vec = 16 // itemsize
+    for N in (1, 2, 8, 48, 64, 255, 256, 257, 512, 1000, 2048, 8191):
+        for d in range(vec, 2049, vec):
+            blocks, threads = rmsnorm_launch_shape(N, d, itemsize)
+            assert blocks == N
+            assert threads % 32 == 0 and threads <= 1024
+            assert threads * vec >= d > (threads - 32) * vec, (N, d, threads)

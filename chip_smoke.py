@@ -14,7 +14,8 @@ Phases; any failure raises and the script exits non-zero:
                on the card, with its time, the plain version's time, the
                least time the card could take for the same work, and the
                time of the one PyTorch call that computes the same
-               function, where there is one (timed only, never on a path).
+               function, where there is one (timed only, never on a path);
+               for paged attention also the host's cost of issuing a call.
                bf16 flash outputs are held to one bf16 ulp of the output
                scale (and 2e-2) on under 1 % of the outputs (fp32 P·V).
   4. small   - the reduced granite config in fp32: the engine on the card
@@ -113,6 +114,39 @@ def cuda_ms(fn, iters=30, warmup=3, graph=True):
     return start.elapsed_time(end) / iters
 
 
+def issue_us(fn, calls=300, warmup=3):
+    """Host microseconds to issue one call: ``time.perf_counter`` around
+    ``calls`` calls with no sync between them, so the device runs behind
+    and only the wrapper's Python and launch work is timed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def paged_issue_us(names=("serve B=8", "main B=8"), kinds=("bf16", "int8")):
+    """{(row, kind): host microseconds a paged-attention call takes to
+    issue} for the ``repro_torch`` package first on ``sys.path``; so the
+    same measurement runs against another checkout's wrapper with that
+    checkout's ``src`` put first."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name in names:
+        B, H, KVH, D, page, P, max_pages, lengths = PAGED_SHAPES[name]
+        for kind in kinds:
+            q, stores, bt, ln = paged_case(gen, B, H, KVH, D, page, P, max_pages,
+                                           lengths, kind)
+            k, v, ks, vs = stores[0]
+            out[(name, kind)] = issue_us(lambda: paged_attention(q, k, v, bt, ln, ks, vs))
+    return out
+
+
 def demangle(names):
     """C++ kernel symbols as ``name<template arguments>``, by c++filt where
     it exists (else as they are)."""
@@ -175,6 +209,27 @@ def nvidia_smi():
 # phase 3: kernel against its plain version
 # ----------------------------------------------------------------------
 
+# (B, H, KVH, D, page, P, max_pages, lengths) of each paged-attention row
+MAIN_LENGTHS = [1, 31, 32, 33, 200, 512, 900, 1023]
+PAGED_SHAPES = {
+    # the main path's geometry: 8 slots, granite heads, page 32, the
+    # engine's store (256 pages + trash) and table width (max_len 1024)
+    "main B=8": (8, 32, 8, 64, 32, 257, 32, MAIN_LENGTHS),
+    "granite B=1": (1, 32, 8, 64, 32, 512, 64, [2000]),
+    "granite B=8": (8, 32, 8, 64, 32, 512, 64, [1, 31, 32, 33, 257, 640, 1500, 2000]),
+    "reduced B=8": (8, 4, 2, 16, 16, 96, 13, [1, 15, 16, 17, 40, 64, 100, 200]),
+    # the small phase's engine (4 slots, max_len 128, page 16, its 32 pages
+    # + trash): one split, so the split kernel writes the output itself
+    "reduced engine B=4": (4, 4, 2, 16, 16, 33, 8, [1, 17, 100, 128]),
+    "llama2 B=8": (8, 32, 32, 128, 32, 257, 32, MAIN_LENGTHS),
+    "g12 B=8": (8, 48, 4, 128, 32, 257, 32, MAIN_LENGTHS),
+    "page128 B=8": (8, 32, 8, 64, 128, 65, 8, MAIN_LENGTHS),
+    # the serve phase's decode contexts: prompts of 20-70 tokens with
+    # their directive, plus up to 64 generated
+    "serve B=8": (8, 32, 8, 64, 32, 257, 32, [60, 74, 88, 102, 116, 130, 145, 160]),
+}
+
+
 def paged_case(gen, B, H, KVH, D, page, P, max_pages, lengths, kind):
     """Inputs of one paged-attention call; ``copies`` page stores rotate so
     repeated launches find the cache cold, as a decode step does (each
@@ -196,7 +251,7 @@ def paged_case(gen, B, H, KVH, D, page, P, max_pages, lengths, kind):
             stores.append((k.to(dt), v.to(dt), None, None))
     bt = torch.full((B, max_pages), -1, dtype=torch.int32)
     for b, L in enumerate(lengths):
-        n = -(-L // page)
+        n = min(-(-L // page), max_pages)
         bt[b, :n] = torch.randperm(P, generator=torch.Generator().manual_seed(b))[:n]
     ln = torch.tensor(lengths, dtype=torch.int32)
     return q, stores, bt.to(dev), ln.to(dev)
@@ -219,19 +274,17 @@ def paged_bound(q, lengths, KVH, D, page, kind):
 
 
 def paged_phase():
+    """Paged attention at the main path's geometry, one long slot, longer
+    tables, the reduced heads (also at the small phase's own engine, whose
+    one split has no combine), the serve's own contexts, and the widths the
+    kernel covers beyond granite: D 128 with one query head per KV head
+    (Llama 2) and with groups of 12, and 128-token pages."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import _n_sm, paged_attention, split_plan
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = {
-        # the main path's geometry: 8 slots, granite heads, page 32, the
-        # engine's store (256 pages + trash) and table width (max_len 1024)
-        "main B=8": (8, 32, 8, 64, 32, 257, 32, [1, 31, 32, 33, 200, 512, 900, 1023]),
-        "granite B=1": (1, 32, 8, 64, 32, 512, 64, [2000]),
-        "granite B=8": (8, 32, 8, 64, 32, 512, 64, [1, 31, 32, 33, 257, 640, 1500, 2000]),
-        "reduced B=8": (8, 4, 2, 16, 16, 96, 13, [1, 15, 16, 17, 40, 64, 100, 200]),
-    }
     rows = {}
-    for name, (B, H, KVH, D, page, P, max_pages, lengths) in shapes.items():
+    for name, (B, H, KVH, D, page, P, max_pages, lengths) in PAGED_SHAPES.items():
+        pps, n_splits = split_plan(B, KVH, max_pages, page, _n_sm(0))
         for kind in ("bf16", "f32", "int8"):
             q, stores, bt, ln = paged_case(gen, B, H, KVH, D, page, P,
                                            max_pages, lengths, kind)
@@ -254,12 +307,15 @@ def paged_phase():
             ms = cuda_ms(lambda: run(paged_attention))
             eager_ms = cuda_ms(lambda: run(paged_attention), graph=False)
             plain_ms = cuda_ms(lambda: run(ref.paged_attention_ref), iters=10)
+            k, v, ks, vs = stores[0]
+            host_us = issue_us(lambda: paged_attention(q, k, v, bt, ln, ks, vs))
             bound_ms, bound_by = paged_bound(q, lengths, KVH, D, page, kind)
             rows[(name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by)
-            print(f"kernel paged_attention {name:12s} {kind:4s} lengths={lengths} "
+            print(f"kernel paged_attention {name:12s} {kind:4s} B={B} H={H} KVH={KVH} D={D} "
+                  f"page={page} n_splits={n_splits} (pages_per_split {pps}) lengths={lengths} "
                   f"err={err:.3e} (tol {TOL[kind]}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} issue_us={host_us:.1f} "
                   f"bound_ms={bound_ms:.5f} ({bound_by}) share={bound_ms / ms:.3f}")
     return rows
 
@@ -716,8 +772,18 @@ def main():
     log = build.build()
     build.load()
     print(f"build: {time.monotonic() - t0:.1f} s -> {build.library_path().name}")
-    for line in ptxas_report(log):
+    report = ptxas_report(log)
+    for line in report:
         print(f"build: ptxas {line}")
+    if report:
+        # both paged kernels: the split kernel in every instantiation, and
+        # the combine
+        paged = [ln for ln in report if "paged_attention" in ln.split(":")[0]]
+        spilled = [ln.split(":")[0] for ln in paged
+                   if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        kinds = sorted({ln.split("<")[0] for ln in paged})
+        print(f"build: paged kernels {kinds}: {len(paged)} instantiations, "
+              f"{len(spilled)} with spills {spilled}")
     hmma = sass_hmma_counts(build.library_path())
     if hmma is None:
         print("build: SASS HMMA count of the bf16 flash kernels: not available "

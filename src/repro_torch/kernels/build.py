@@ -94,7 +94,7 @@ def load() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(library_path()))
     fn = lib.paged_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.fused_rmsnorm_fwd

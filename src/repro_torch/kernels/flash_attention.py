@@ -15,27 +15,12 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.checks import check_launch, check_one_device, check_tensor
+from repro_torch.kernels.checks import (check_cp_async_rows, check_launch,
+                                        check_one_device, check_tensor)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64)  # the reduced config's and granite's
 _check = functools.partial(check_tensor, "flash_attention", contiguous=False)
-
-
-def check_cp_async_rows(name: str, t) -> None:
-    """The bf16 kernel copies each row of D elements into shared memory in
-    16-byte pieces (``cp.async``), so the tensor's base address and its
-    (batch, head, token) strides must be multiples of 16 bytes (the stride
-    of a dimension of size 1 is never used). Raises ValueError naming the
-    constraint otherwise; any device."""
-    item = t.element_size()
-    strides = [s * item for s in t.stride()[:3]]
-    if t.data_ptr() % 16 or any(s % 16 for s, n in zip(strides, t.shape) if n > 1):
-        raise ValueError(
-            f"flash_attention: {name} rows must be 16-byte aligned for the "
-            f"kernel's 16-byte cp.async copies; got base address % 16 = "
-            f"{t.data_ptr() % 16} and (batch, head, token) strides of "
-            f"{strides} bytes")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -63,7 +48,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention: q, k, v need a unit stride along D")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
-            check_cp_async_rows(name, t)
+            check_cp_async_rows("flash_attention", name, t)
     check_one_device("flash_attention", q, k, v)
     out = torch.empty_like(q)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)

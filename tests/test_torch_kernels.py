@@ -19,7 +19,7 @@ from repro.kernels.rmsnorm import fused_rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.models.attention import dequantize_kv as jdequantize_kv  # noqa: E402
 from repro.models.attention import quantize_kv as jquantize_kv  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import check_cp_async_rows  # noqa: E402
+from repro_torch.kernels.checks import check_cp_async_rows  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as cuda_paged  # noqa: E402
 from repro_torch.kernels.rmsnorm import fused_rmsnorm as cuda_rmsnorm  # noqa: E402
@@ -58,6 +58,11 @@ CASES = [
     (3, 8, 2, 64, 16, 32, 4, [1, 33, 128]),
     (4, 4, 2, 16, 24, 16, 6, [16, 17, 31, 96]),
     (2, 32, 8, 64, 12, 32, 5, [32, 150]),
+    # the widths the redesigned kernel covers: D 128 with groups of 12 and
+    # of 1 (Llama 2), 128-token pages
+    (2, 12, 1, 128, 8, 32, 4, [1, 100]),
+    (2, 4, 4, 128, 6, 32, 3, [33, 96]),
+    (3, 8, 2, 64, 8, 128, 2, [1, 129, 256]),
 ]
 
 
@@ -314,10 +319,10 @@ def test_flash_wrapper_checks_rows_for_16_byte_copies(kind):
     alignment raises, naming the constraint."""
     t = _bf16_views(kind)
     if kind == "aligned":
-        check_cp_async_rows("q", t)
+        check_cp_async_rows("flash_attention", "q", t)
     else:
         with pytest.raises(ValueError, match="16-byte aligned.*cp.async"):
-            check_cp_async_rows("q", t)
+            check_cp_async_rows("flash_attention", "q", t)
 
 
 @pytest.mark.parametrize("N,d,itemsize,shape", [

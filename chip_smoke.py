@@ -25,18 +25,44 @@ Phases; any failure raises and the script exits non-zero:
                fp32 and int8 KV.
   5. serve   - the main path: full-width granite-3-2b in bf16 (random
                weights from a seed) served through CarbonAwareScheduler ->
-               paged InferenceEngine -> CUDA kernels (RMSNorm in every
-               forward pass, flash attention in every whole-prompt prefill
-               group, paged attention in every decode step), three times:
-               bf16 KV, int8 KV, and bf16 KV with chunked prefill (chunk
-               48, so chunks straddle the 32-token pages). Around each run
+               paged InferenceEngine -> its entry points, each a CUDA graph
+               captured at first use and replayed after -> CUDA kernels
+               (RMSNorm in every forward pass, flash attention in every
+               whole-prompt prefill group, paged attention in every decode
+               step), three times: bf16 KV, int8 KV, and bf16 KV with
+               chunked prefill (chunk 48, so chunks straddle the 32-token
+               pages). Each run drives its traffic once to build the entry
+               table, then again with the table frozen (its names are
+               snapshotted before and after, and must not change), so
+               decode tokens/s comes from replayed dispatches only. No
+               plain version may run in the building drive, where every
+               wrapper call of a capture runs. Around the measured drive
                the launch counts are zeroed and read, and checked against
-               the engine's forward passes; no plain version may run. One
-               decode block of each run and one prefill group (8 x 128)
-               are profiled for their device time.
+               the engine's forward passes. A replay advances them by the
+               calls recorded at capture, so they are also held to what the
+               card ran: every entry's graph is read back (its debug dump,
+               one record a kernel node) and must hold as many nodes of
+               each kernel as a replay counts, and the drive's replays,
+               counted entry by entry, times those nodes must equal the
+               counters. Each run prints its entry count, capture count
+               and time and graph pool size. One block of each run and one
+               prefill group (8 x 128) are profiled: host wall, device
+               kernel time (torch.profiler), the kernels the replay ran
+               (held to the counters and the forward passes; the
+               profiler's kernel events may fall short of them, never
+               above) and the span of the one replay (CUDA events), which
+               may not exceed the wall.
+  6. graphs  - inside each run's profile, one block (a decode block; a mixed
+               block in the chunked run) is run twice from one state: the
+               entry's eager callable, then, with the page store and the
+               static inputs restored, the graph's replay. Tokens, validity
+               and live mask must be identical and the page store equal
+               byte for byte outside the write-only trash page; the host
+               wall of each is printed.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
+import contextlib
 import itertools
 import json
 import math
@@ -45,6 +71,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -555,128 +582,456 @@ def small_phase():
                  else "identical"))
 
 
-def profile_block(eng, label):
-    """Where a decode step's time goes: one block timed bare, then one more
-    under torch.profiler, whose kernel events give the device time (the
-    rest of the block's wall time the device sits idle, waiting on the
-    host). On a chunked engine both blocks are mixed: 6 lanes decode while
-    a late 100-token prompt streams in chunks."""
+@contextlib.contextmanager
+def hooked_runs(eng, wrap):
+    """Within the block, each entry's ``run`` is ``wrap(entry, run)`` (an
+    instance attribute over the method); the table must not grow inside."""
+    names = set(eng.entry_points)
+    for entry in eng.entry_points.values():
+        entry.run = wrap(entry, entry.run)
+    try:
+        yield
+    finally:
+        for entry in eng.entry_points.values():
+            entry.__dict__.pop("run", None)
+    check(set(eng.entry_points) == names,
+          f"entry table grew under a hook: {sorted(set(eng.entry_points) - names)}")
+
+
+def timed_runs(eng, events):
+    """Record CUDA events around every replay into ``events`` as (entry
+    name, start, end): the device span of the graphs themselves (kernels
+    and the gaps between them), whether or not torch.profiler sees the
+    kernels inside a replay."""
+    def wrap(entry, run):
+        def timed():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            events.append((entry.name, start, end))
+            return out
+        return timed
+    return hooked_runs(eng, wrap)
+
+
+def replay_span(events, wall_ms, label):
+    """The device span (ms) of the one replay timed in a window whose host
+    wall (between two syncs) was ``wall_ms``. Exactly one entry must have
+    run, and its span cannot exceed the wall that holds it."""
+    check(len(events) == 1, f"{label}: {len(events)} replays timed in one window: "
+          f"{[name for name, _, _ in events]}")
+    _, start, end = events[0]
+    span = start.elapsed_time(end)
+    check(span <= wall_ms, f"{label}: replay span {span:.3f} ms > host wall {wall_ms:.3f} ms")
+    return span
+
+
+# each wrapper's kernel by its name on the card (a graph's kernel nodes,
+# torch.profiler's kernel events); a paged call launches one split kernel,
+# and its combine kernel only where it splits
+CARD_KERNELS = {"paged_attention": "paged_attention_split_kernel",
+                "flash_attention": "flash_attention_bf16_kernel",
+                "fused_rmsnorm": "rmsnorm_kernel"}
+GRAPH_DUMPS = Path(__file__).resolve().parent / "build" / "graphs"
+
+
+class KeptGraph(torch.cuda.CUDAGraph):
+    """A CUDA graph that keeps its node list once instantiated, so that its
+    kernel nodes can be read back (``graph_kernel_nodes``)."""
+
+    def __new__(cls, keep_graph=False):
+        return super().__new__(cls, True)
+
+    def __init__(self, keep_graph=False):
+        super().__init__(True)
+        self.enable_debug_mode()
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """Entries captured inside the block keep their graphs' node lists."""
+    plain = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = KeptGraph
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = plain
+
+
+def graph_kernel_nodes(entry):
+    """Each wrapper's kernel nodes in the entry's captured graph, read from
+    the graph itself: its debug dump holds one record a kernel node, with
+    the kernel's name. Read once and kept on the entry (the dump releases
+    the node list; the instantiated graph replays on)."""
+    if "kernel_nodes" not in entry.__dict__:
+        GRAPH_DUMPS.mkdir(parents=True, exist_ok=True)
+        path = GRAPH_DUMPS / f"{entry.name}.dot"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            entry.graph.debug_dump(str(path))
+        text = path.read_text()
+        path.unlink()
+        names = re.findall(r"\{KERNEL\s*\|\s*\{ID \| \d+ \(topoId: \d+\) \| (\S+?)\\<", text)
+        check(names and len(names) == text.count("{KERNEL"),
+              f"{entry.name}: {text.count('{KERNEL')} kernel nodes in the graph's dump, "
+              f"{len(names)} read")
+        entry.kernel_nodes = {name: sum(kern in n for n in names)
+                              for name, kern in CARD_KERNELS.items()}
+        entry.kernel_nodes["all"] = len(names)
+    return entry.kernel_nodes
+
+
+def check_graph_nodes(eng, label):
+    """Every entry's graph holds, of each wrapper's kernel, as many nodes as
+    the wrapper calls its replay adds to the counter (``per_run``, recorded
+    at capture)."""
+    from repro_torch.serving.graphs import COUNTED
+    by_fn = dict(zip(COUNTED, range(len(COUNTED))))
+    for entry in eng.entry_points.values():
+        nodes = graph_kernel_nodes(entry)
+        per_run = {name: entry.per_run[by_fn[fn]] for name, fn in wrappers().items()}
+        check(all(nodes[name] == n for name, n in per_run.items()),
+              f"{label}: {entry.name}'s graph has kernel nodes {nodes}; a replay "
+              f"counts {per_run}")
+
+
+@contextlib.contextmanager
+def counted_replays(eng, replays):
+    """Count each entry's replays inside the block into ``replays``
+    ({entry: replays}); the table must not grow."""
+    def wrap(entry, run):
+        def counted():
+            replays[entry] = replays.get(entry, 0) + 1
+            return run()
+        return counted
+    with hooked_runs(eng, wrap):
+        yield
+
+
+def graph_launches(replays):
+    """Each wrapper's kernel executions on the card over the counted
+    replays: a replay runs every node of its graph once."""
+    return {name: sum(n * graph_kernel_nodes(entry)[name] for entry, n in replays.items())
+            for name in CARD_KERNELS}
+
+
+def wrappers():
+    """The three kernel wrappers by name; each counts its calls in
+    ``launches``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rmsnorm import fused_rmsnorm
+    return {"paged_attention": paged_attention, "flash_attention": flash_attention,
+            "fused_rmsnorm": fused_rmsnorm}
+
+
+def card_launches(prof):
+    """How many times each wrapper's kernel shows in a profiled window's
+    kernel events, by name. These may fall short of what ran: CUPTI can
+    drop a record (one RMSNorm of 8,262 in one serve drive), so they are
+    held to the graphs' count from above only."""
     from torch.autograd import DeviceType
+    counts = dict.fromkeys(CARD_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name, kern in CARD_KERNELS.items():
+                if re.search(rf"\b{kern}\b", e.key):
+                    counts[name] += e.count
+    return counts
+
+
+def expected_launches(L, groups, steps, passes):
+    """Each wrapper's calls in ``groups`` whole-prompt prefill groups,
+    ``steps`` decode steps and ``passes`` chunk passes of an L-layer model:
+    paged attention once a layer a decode step, flash attention once a
+    layer a group, RMSNorm twice a layer and once more (the final norm)
+    every forward pass."""
+    return {"paged_attention": L * steps, "flash_attention": L * groups,
+            "fused_rmsnorm": (2 * L + 1) * (groups + steps + passes)}
+
+
+def graph_against_eager(eng, label):
+    """Run the engine's next block twice from one state: the entry's eager
+    callable, then (page store and static inputs restored) the graph's
+    replay. Tokens, validity and live mask must be identical and the page
+    store equal byte for byte outside the trash page; prints what differs,
+    and the host wall of each run (with a sync)."""
+    from repro_torch.serving.graphs import COUNTED
+    seen = []
+
+    def wrap(entry, run):
+        def compare():
+            leaves = [(f"seg{i}.{key}", x) for i, seg in enumerate(eng.cache)
+                      for key, x in seg.items()]
+            pages0 = [x.clone() for _, x in leaves]
+            inputs0 = entry.buf.clone()
+            counts = [w.launches for w in COUNTED]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out_e = entry.fn(**entry.inputs).clone()
+            torch.cuda.synchronize()
+            eager_ms = (time.monotonic() - t0) * 1e3
+            pages_e = [x.clone() for _, x in leaves]
+            for w, n in zip(COUNTED, counts):          # a comparison, not the path
+                w.launches = n
+            for (_, x), x0 in zip(leaves, pages0):
+                x.copy_(x0)
+            entry.buf.copy_(inputs0)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out_g = run()
+            torch.cuda.synchronize()
+            graph_ms = (time.monotonic() - t0) * 1e3
+            k = (out_g.shape[0] - 1) // 2
+            parts = {"toks": slice(0, k), "valid": slice(k, 2 * k), "live_final": slice(2 * k, None)}
+            out_diff = [part for part, sl in parts.items()
+                        if not torch.equal(out_e[sl], out_g[sl])]
+            # every page but the trash page (the last), which no table maps:
+            # rows aimed there (dead lanes, pad rows, length-0 chunk passes)
+            # collide on its slots, and which of them lands is not ordered
+            page_diff, trash = [], 0
+            for (name, x), xe in zip(leaves, pages_e):
+                differ = x.view(torch.uint8) != xe.view(torch.uint8)
+                trash += int(differ[:, -1].sum())
+                nbytes = int(differ[:, :-1].sum())
+                if nbytes:
+                    err = (x[:, :-1].float() - xe[:, :-1].float()).abs().max().item()
+                    page_diff.append(f"{name}: {nbytes} bytes differ, max abs {err:.3e}")
+            seen.append((entry.name, k, out_diff, page_diff, trash, eager_ms, graph_ms))
+            return out_g
+        return compare
+
+    with hooked_runs(eng, wrap):
+        eng.step()
+    check(len(seen) == 1, f"{label}: graph against eager ran {len(seen)} entries")
+    name, k, out_diff, page_diff, trash, eager_ms, graph_ms = seen[0]
+    print(f"graphs {label}: {name} run eagerly and replayed from one state: outputs "
+          f"{'identical' if not out_diff else 'differ in ' + str(out_diff)}; page store "
+          f"{'equal byte for byte' if not page_diff else 'differs: ' + '; '.join(page_diff)} "
+          f"outside the trash page ({trash} bytes of the trash page differ); "
+          f"host wall with sync {eager_ms / k:.2f} ms/step eager, {graph_ms / k:.2f} ms/step "
+          f"replayed ({k} steps)")
+    check(not out_diff and not page_diff,
+          f"{label}: {name} replay differs from its eager run: {out_diff} {page_diff}")
+
+
+def device_report(prof, steps):
+    """(kernel ms, kernel ms by name part, top-kernel summary) per step, from
+    torch.profiler's kernel events."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+
+    def by_name(part):
+        return sum(e.self_device_time_total for e in kern if part in e.key) / 1e3 / steps
+
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    names = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms "
+                      f"x{e.count / steps:g}" for e in top)
+    return kern_ms, by_name, names
+
+
+def profile_block(eng, label):
+    """Where a decode step's time goes, through the engine's entries: the
+    scenario runs once to build its entries, then again with the table
+    frozen. Its first block runs graph against eager; one block is timed
+    bare, with CUDA events around its replay (the graph's device time);
+    one more under torch.profiler (kernel events). On a chunked engine the
+    blocks are mixed: 5, 6, then 7 lanes decode while a late 100-token
+    prompt streams in chunks."""
     from torch.profiler import ProfilerActivity, profile
     mixed = eng.chunked_admission
-    n_first = eng.n_slots - (2 if mixed else 0)
+    n_first = eng.n_slots - (3 if mixed else 0)
     prompts = [[1 + (7 * i + j) % 250 for j in range(100)] for i in range(eng.n_slots)]
-    for p in prompts[:n_first]:
-        eng.submit(p, max_new_tokens=40)
-    eng.step()                                 # prefill + first block
-    late = iter(prompts[n_first:])
 
-    def block_ms():
+    def block_ms(late):
         if mixed:       # arrives while lanes decode: admitted as a chunk task
             eng.submit(next(late), max_new_tokens=40)
         torch.cuda.synchronize()
-        steps0, chunks0, t0 = eng.steps, eng.chunk_steps, time.monotonic()
+        steps0, chunks0, passes0 = eng.steps, eng.chunk_steps, eng.chunk_passes
+        t0 = time.monotonic()
         eng.step()
         torch.cuda.synchronize()
         k = eng.steps - steps0
         check(not mixed or eng.chunk_steps > chunks0, "profiled block streamed no chunk")
-        return (time.monotonic() - t0) * 1e3 / k, k
+        return (time.monotonic() - t0) * 1e3 / k, k, eng.chunk_passes - passes0
 
-    bare_ms, _ = block_ms()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_ms, k = block_ms()
-    check(mixed or int(eng.live.sum()) == eng.n_slots, "profiled block lost a lane")
-    eng.run_to_completion()
-    eng.finished = []
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / k
+    def scenario(measure):
+        for p in prompts[:n_first]:
+            eng.submit(p, max_new_tokens=40)
+        eng.step()                                 # prefill + first block
+        late = iter(prompts[n_first:])
+        if not measure:
+            for _ in range(3):
+                block_ms(late)
+            eng.run_to_completion()
+            eng.finished = []
+            return None
+        if mixed:
+            eng.submit(next(late), max_new_tokens=40)
+        graph_against_eager(eng, label)
+        events = []
+        with timed_runs(eng, events):
+            bare_ms, k_bare, _ = block_ms(late)
+        replay_ms = replay_span(events, bare_ms * k_bare, f"{label} block") / k_bare
+        counts0 = [kern.launches for kern in wrappers().values()]
+        replays = {}
+        with counted_replays(eng, replays), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_ms, k, passes = block_ms(late)
+        torch.cuda.synchronize()
+        counted = {name: kern.launches - n for (name, kern), n
+                   in zip(wrappers().items(), counts0)}
+        ran = graph_launches(replays)
+        card = card_launches(prof)
+        want = expected_launches(eng.cfg.n_layers, 0, k, passes)
+        check(ran == counted == want and all(card[n] <= ran[n] for n in ran),
+              f"{label}: profiled block of {k} steps and {passes} chunk passes ran "
+              f"kernels {ran} by its graph, {card} in the profiler's events; counted "
+              f"{counted}, expected {want}")
+        check(mixed or int(eng.live.sum()) == eng.n_slots, "profiled block lost a lane")
+        eng.run_to_completion()
+        eng.finished = []
+        return bare_ms, replay_ms, prof_ms, k, prof, (ran, card)
 
-    def by_name(part):
-        return sum(e.self_device_time_total for e in kern if part in e.key) / 1e3 / k
-
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-    what = (f"mixed block of {n_first} decoding lanes + one 100-token prompt in "
+    scenario(measure=False)
+    names = set(eng.entry_points)
+    bare_ms, replay_ms, prof_ms, k, prof, (ran, card) = scenario(measure=True)
+    check(set(eng.entry_points) == names, f"{label}: profile scenario built entries "
+          f"{sorted(set(eng.entry_points) - names)} after its warm-up")
+    kern_ms, by_name, top = device_report(prof, k)
+    what = (f"mixed block of {n_first + 1} decoding lanes + one 100-token prompt in "
             f"{eng.prefill_chunk}-token chunks" if mixed
             else f"decode block of {eng.n_slots} lanes")
-    print(f"profile {label}: {what} x {k} steps: wall "
+    print(f"profile {label}: {what} x {k} steps, replayed: wall "
           f"{bare_ms:.2f} ms/step bare, {prof_ms:.2f} under the profiler; device "
-          f"kernel time {dev_ms:.3f} ms/step (busy share {dev_ms / bare_ms:.3f} of the "
-          f"bare wall); paged_attention {by_name('paged_attention'):.3f} ms/step, "
-          f"rmsnorm {by_name('rmsnorm'):.3f} ms/step; top kernels: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3 / k:.3f} ms x{e.count / k:g}"
-              for e in top))
+          f"kernel time {kern_ms:.3f} ms/step (torch.profiler; busy share "
+          f"{kern_ms / bare_ms:.3f} of the bare wall); replay device time "
+          f"{replay_ms:.3f} ms/step (CUDA events; busy share {replay_ms / bare_ms:.3f}); "
+          f"paged_attention {by_name('paged_attention'):.3f} ms/step, "
+          f"rmsnorm {by_name('rmsnorm'):.3f} ms/step; kernels run by the replayed graph "
+          f"{ran} (= counted = expected; in the profiler's events {card}); top kernels: "
+          f"{top}")
 
 
 def profile_prefill(cfg, params, B=8, T=128):
-    """Device time of one whole-prompt prefill group at the main path's
-    shape (8 prompts padded to 128 tokens, no cache writes) under
-    torch.profiler, with the flash and RMSNorm kernels' shares."""
-    from torch.autograd import DeviceType
+    """One whole-prompt prefill group at the main path's shape (8 prompts of
+    128 tokens, written into pages) through an engine's entry
+    ``prefill_bs8_p128``: built once, then timed bare (host wall of the
+    dispatch, with its first-token copy; CUDA events around the replay),
+    then under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import model as MD
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    toks = torch.randint(1, cfg.vocab_size, (B, T), generator=gen, device="cuda")
-    lengths = torch.full((B,), T, device="cuda")
-    MD.prefill_last(cfg, params, toks, lengths)            # warm-up
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    MD.prefill_last(cfg, params, toks, lengths)
-    torch.cuda.synchronize()
-    bare_ms = (time.monotonic() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        MD.prefill_last(cfg, params, toks, lengths)
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, params, n_slots=B, max_len=1024, paged=True,
+                          page_size=32, decode_block=8, device="cuda")
+    prompts = [[1 + (5 * i + j) % 250 for j in range(T)] for i in range(B)]
+
+    def group():
+        for p in prompts:              # a budget of 1: the group's first token
+            eng.submit(p, max_new_tokens=1)
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        groups0, t0 = eng.prefill_groups, time.monotonic()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        check(eng.prefill_groups == groups0 + 1 and len(eng.finished) == B,
+              "prefill profile: not one group of finished requests")
+        eng.finished = []
+        return wall
 
-    def by_name(part):
-        return sum(e.self_device_time_total for e in kern if part in e.key) / 1e3
-
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"profile prefill group B={B} T={T}: wall {bare_ms:.2f} ms bare; device kernel "
-          f"time {dev_ms:.3f} ms (busy share {dev_ms / bare_ms:.3f} of the bare wall); "
-          f"flash_attention {by_name('flash_attention'):.3f} ms, rmsnorm "
-          f"{by_name('rmsnorm'):.3f} ms; top kernels: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    group()
+    check(f"prefill_bs{B}_p{T}" in eng.entry_points, f"no prefill_bs{B}_p{T} entry")
+    names = set(eng.entry_points)
+    events = []
+    with timed_runs(eng, events):
+        bare_ms = group()
+    replay_ms = replay_span(events, bare_ms, "prefill profile")
+    counts0 = [kern.launches for kern in wrappers().values()]
+    replays = {}
+    with counted_replays(eng, replays), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        group()
+    torch.cuda.synchronize()
+    check(set(eng.entry_points) == names, "prefill profile built an entry")
+    counted = {name: kern.launches - n for (name, kern), n
+               in zip(wrappers().items(), counts0)}
+    ran = graph_launches(replays)
+    card = card_launches(prof)
+    want = expected_launches(cfg.n_layers, 1, 0, 0)
+    check(ran == counted == want and all(card[n] <= ran[n] for n in ran),
+          f"prefill profile: the group ran kernels {ran} by its graph, {card} in the "
+          f"profiler's events; counted {counted}, expected {want}")
+    kern_ms, by_name, top = device_report(prof, 1)
+    print(f"profile prefill group B={B} T={T}, replayed: wall {bare_ms:.2f} ms bare; "
+          f"device kernel time {kern_ms:.3f} ms (torch.profiler; busy share "
+          f"{kern_ms / bare_ms:.3f} of the bare wall); replay device time {replay_ms:.3f} "
+          f"ms (CUDA events; busy share {replay_ms / bare_ms:.3f}); flash_attention "
+          f"{by_name('flash_attention'):.3f} ms, rmsnorm {by_name('rmsnorm'):.3f} ms; "
+          f"kernels run by the replayed graph {ran} (= counted = expected; in the "
+          f"profiler's events {card}); top kernels: {top}; entries {len(eng.entry_points)}, captures "
+          f"{eng.graphs.captures} in {eng.graphs.capture_ms:.0f} ms, graph pool "
+          f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
 
 
 def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
-    """One main-path run: 12 requests through the scheduler. Returns the
-    launches of each kernel in the run, checked against the engine's
-    forward passes."""
+    """One main-path run: 12 requests through the scheduler, driven once to
+    build the entry table (every wrapper call of a capture runs here, and
+    no plain version may) and again, with the table frozen, to measure.
+    Returns the launches of each kernel in the measured drive, checked
+    against the engine's forward passes and against the kernel nodes that
+    the drive's replays ran."""
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.scheduler import CarbonAwareScheduler, ServeRequest
     eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
                           page_size=32, decode_block=8, kv_int8=kv_int8,
                           prefill_chunk=prefill_chunk, device="cuda")
-    eng.submit(list(range(1, 40)), max_new_tokens=8)     # warm-up request
-    eng.run_to_completion()
-    eng.finished = []
-    # uniform directive mix, as the serving launcher draws before the LP
-    # has level profiles
-    rng = np.random.default_rng(0)
-    sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)))
-    for p in PROMPTS:
-        sched.submit(ServeRequest(0, p, max_new_tokens=64,
-                                  max_new_by_level=(64, 48, 32)))
+    label = (f"granite-3-2b bf16 kv_int8={kv_int8}"
+             + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else ""))
+
+    def drive():
+        # uniform directive mix, as the serving launcher draws before the
+        # LP has level profiles; the same seed, so both drives see the
+        # same levels, budgets and shapes
+        rng = np.random.default_rng(0)
+        sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)))
+        for p in PROMPTS:
+            sched.submit(ServeRequest(0, p, max_new_tokens=64,
+                                      max_new_by_level=(64, 48, 32)))
+        t0 = time.monotonic()
+        sched.run()
+        torch.cuda.synchronize()
+        return sched, time.monotonic() - t0
+
+    plain_calls.clear()
+    _, warm_wall = drive()
+    # the building drive is where Python runs through the wrappers (warm-up
+    # and capture of every entry); a replay runs none
+    check(not plain_calls, f"{label}: plain versions called while the entries were "
+          f"built: {plain_calls}")
+    names = set(eng.entry_points)
+    check_graph_nodes(eng, label)
+    captures, capture_ms = eng.graphs.captures, eng.graphs.capture_ms
     groups0, steps0, chunks0 = eng.prefill_groups, eng.steps, eng.chunk_steps
-    tokens0 = eng.decode_tokens
+    passes0, tokens0 = eng.chunk_passes, eng.decode_tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
     plain_calls.clear()
-    t0 = time.monotonic()
-    sched.run()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    replays = {}
+    with counted_replays(eng, replays):
+        sched, wall = drive()
     launches = {name: kern.launches for name, kern in kernels.items()}
     plain = dict(plain_calls)
+    check(set(eng.entry_points) == names and eng.graphs.captures == captures,
+          f"{label}: entry table grew in the measured drive: "
+          f"{sorted(set(eng.entry_points) - names)}")
     groups = eng.prefill_groups - groups0
     steps = eng.steps - steps0
     chunks = eng.chunk_steps - chunks0
-    label = (f"granite-3-2b bf16 kv_int8={kv_int8}"
-             + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else ""))
+    passes = eng.chunk_passes - passes0
     fin = sched.finished
     check(not sched.rejected, f"{label}: rejected: {sched.rejected}")
     check(len(fin) == len(PROMPTS), f"{label}: {len(fin)} of {len(PROMPTS)} finished")
@@ -686,35 +1041,44 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     levels = sorted({f.directive_level for f in fin})
     check(levels == [0, 1, 2], f"{label}: directive levels {levels}")
     check(not prefill_chunk or chunks > 0, f"{label}: no prompt chunk ran")
-    L = cfg.n_layers
-    want = {"paged_attention": L * steps, "flash_attention": L * groups,
-            "fused_rmsnorm": (2 * L + 1) * (groups + steps + chunks)}
+    want = expected_launches(cfg.n_layers, groups, steps, passes)
     check(launches == want, f"{label}: launches {launches} != expected {want} from "
-          f"{groups} prefill groups, {steps} decode steps, {chunks} chunk passes")
+          f"{groups} prefill groups, {steps} decode steps, {passes} chunk passes")
+    # what the card ran: each replay runs every kernel node of its graph
+    ran = graph_launches(replays)
+    check(ran == launches, f"{label}: the drive's {sum(replays.values())} replays ran "
+          f"kernels {ran} by their graphs; counted {launches}")
     check(sum(plain.values()) == 0, f"{label}: plain versions called on the card: {plain}")
+    # every dispatch of the frozen drive replayed a built entry, so each
+    # reported its decode time (a dispatch that captures reports 0.0)
     decode_s = sum(f.decode_s for f in fin)
     dec_tokens = eng.decode_tokens - tokens0
     kv = eng.kv_stats()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"serve {label}: {len(fin)} requests, levels "
           f"{[f.directive_level for f in fin]}, gen tokens {[f.gen_tokens for f in fin]}; "
           f"forward passes: {groups} prefill groups, {steps} decode steps, {chunks} "
-          f"chunk passes; launches {launches} (= expected), plain calls {plain or 0}; "
-          f"decode tokens {dec_tokens} in {decode_s:.3f} s = "
-          f"{dec_tokens / decode_s:.1f} tok/s; wall {wall:.3f} s "
-          f"({sum(f.gen_tokens for f in fin) / wall:.1f} gen tok/s); peak pages "
-          f"{kv['peak_pages_in_use']} of {kv['n_pages']} "
+          f"chunks in {passes} chunk passes; launches {launches} (= expected = the "
+          f"kernel nodes run by the drive's {sum(replays.values())} replays), plain calls "
+          f"{plain or 0} (building drive 0); decode tokens {dec_tokens} in {decode_s:.3f} s = "
+          f"{dec_tokens / decode_s:.1f} tok/s (replayed dispatches only); wall {wall:.3f} s "
+          f"({sum(f.gen_tokens for f in fin) / wall:.1f} gen tok/s; the building drive "
+          f"{warm_wall:.3f} s); peak pages {kv['peak_pages_in_use']} of {kv['n_pages']} "
           f"({kv['peak_kv_bytes_in_use'] / 2**20:.1f} MiB KV); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{peak_gib:.2f} GiB")
+    print(f"entries {label}: {len(names)} entries {sorted(names)}; {captures} captures in "
+          f"{capture_ms:.0f} ms; graph pool {eng.graphs.pool_bytes / 2**20:.1f} MiB")
     profile_block(eng, label)
+    check_graph_nodes(eng, label)
+    print(f"entries {label} after the profile: {len(eng.entry_points)} entries, "
+          f"{eng.graphs.captures} captures in {eng.graphs.capture_ms:.0f} ms, graph pool "
+          f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
     return launches
 
 
 def serve_phase():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.rmsnorm import fused_rmsnorm
     from repro_torch.models import model as MD
     cfg = get_config("granite_3_2b")
     t0 = time.monotonic()
@@ -729,9 +1093,9 @@ def serve_phase():
     logits = MD.forward(cfg, params, toks, mode="prefill")
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    profile_prefill(cfg, params)
-    kernels = {"paged_attention": paged_attention, "flash_attention": flash_attention,
-               "fused_rmsnorm": fused_rmsnorm}
+    with kept_graphs():
+        profile_prefill(cfg, params)
+    kernels = wrappers()
     # count calls of the plain versions: the main path must never take them
     plain_calls = {}
     originals = {name: getattr(ref, f"{name}_ref") for name in kernels}
@@ -746,10 +1110,11 @@ def serve_phase():
         setattr(ref, f"{name}_ref", counted(name, fn))
     totals = dict.fromkeys(kernels, 0)
     try:
-        for kv_int8, chunk in ((False, 0), (True, 0), (False, 48)):
-            for name, n in serve(cfg, params, kv_int8, chunk, kernels,
-                                 plain_calls).items():
-                totals[name] += n
+        with kept_graphs():
+            for kv_int8, chunk in ((False, 0), (True, 0), (False, 48)):
+                for name, n in serve(cfg, params, kv_int8, chunk, kernels,
+                                     plain_calls).items():
+                    totals[name] += n
     finally:
         for name, fn in originals.items():
             setattr(ref, f"{name}_ref", fn)

@@ -163,8 +163,10 @@ def gqa_chunk_append(cfg: ModelConfig, p, x, positions, valid, lane, cache,
     ``gqa_chunk_append``, ``attention.py:262-359``).
 
     x: (1, C, d) chunk hidden states; positions: (C,) absolute positions;
-    valid: (C,) bool (False rows are pad); lane: the block-table row this
-    chunk owns; block_table: (rows, max_pages) int32 (-1 = unmapped).
+    valid: (C,) bool (False rows are pad); lane: 0-dim integer tensor, the
+    block-table row this chunk owns, read on the device (no host value, so
+    a CUDA graph can capture the call); block_table: (rows, max_pages)
+    int32 (-1 = unmapped).
     ``cache`` is one layer's page store, written in place: pad rows and
     unmapped entries go to the trash page. The read gathers the lane's
     pages (entries clamped to real pages; rows past q_pos are masked by
@@ -175,7 +177,8 @@ def gqa_chunk_append(cfg: ModelConfig, p, x, positions, valid, lane, cache,
     q, k_new, v_new = _project_qkv(cfg, p, x, positions[None, :])
     trash = cache["k"].shape[0] - 1          # == the reference's page count P
     ps = cache["k"].shape[1]
-    bt = block_table[lane]                                     # (max_pages,)
+    # a 0-dim index would be read back to the host: select by a 1-row index
+    bt = block_table.index_select(0, lane.reshape(1))[0]       # (max_pages,)
     entry = bt[(positions // ps).clamp(0, bt.shape[0] - 1)]
     page = torch.where(valid & (entry >= 0), entry.long(), trash)
     write_pages(cache, k_new[0], v_new[0], page, (positions % ps).long())

@@ -227,16 +227,19 @@ def prefill_last(cfg: ModelConfig, params, tokens, lengths, cache=None,
     return unembed(cfg, params["embed"], x[rows, lengths - 1])
 
 
-def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0: int,
-                       clen: int, lane: int, cache, *, block_table):
+def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0, clen, lane,
+                       cache, *, block_table):
     """Run ONE prompt chunk for one lane through the whole stack
     (``model.py:368-404``).
 
     tokens: (C,) chunk token ids (pad beyond ``clen``); pos0: absolute
     position of tokens[0]; clen: valid length (0 = every write goes to the
-    trash page); lane: block-table row. ``cache`` (``init_paged_cache``
-    output) is written in place. Returns the logits (V,) at position
-    pos0 + clen - 1, meaningful on a request's final chunk."""
+    trash page); lane: block-table row. ``pos0``, ``clen`` and ``lane`` are
+    0-dim integer tensors on the tokens' device, as the reference's scan
+    passes them, so nothing here reads a host value and a CUDA graph can
+    capture the step. ``cache`` (``init_paged_cache`` output) is written
+    in place. Returns the logits (V,) at position pos0 + clen - 1,
+    meaningful on a request's final chunk."""
     _check_supported(cfg)
     C = tokens.shape[0]
     idx = torch.arange(C, device=tokens.device)
@@ -248,8 +251,8 @@ def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0: int,
                                   lane, _layer_cache(cache[s], i),
                                   block_table=block_table)
     x = apply_norm(cfg, params["norm"], x)
-    last = min(max(clen - 1, 0), C - 1)
-    return unembed(cfg, params["embed"], x[0, last])
+    last = (clen - 1).clamp(0, C - 1).reshape(1)
+    return unembed(cfg, params["embed"], x[0].index_select(0, last)[0])
 
 
 def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,

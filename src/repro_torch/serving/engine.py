@@ -20,10 +20,22 @@ plain versions.
 **Chunked prefill** (``prefill_chunk > 0``): a request that arrives while
 lanes decode is not prefilled in a whole-prompt stall. It is admitted as a
 chunk task, and each step of the next blocks runs the decode step of
-every lane plus at most one ``prefill_chunk``-token chunk of its prompt
-(``models.model.prefill_chunk_step``), with pages mapped per chunk. The
-final chunk's first token and the lane's flip to live stay on the device,
-so first tokens arrive through the same one copy per block.
+every lane plus one ``prefill_chunk``-token chunk pass of its prompt
+(``models.model.prefill_chunk_step``; a pass past the last chunk has
+length 0 and writes only the trash page), with pages mapped per chunk.
+The final chunk's first token and the lane's flip to live stay on the
+device, so first tokens arrive through the same one copy per block.
+
+**Entry points** (``entry_points``, the reference's table of compiled
+programs, under its names): a decode block is ``decode_bs{N}_k{K}_greedy``,
+a block that also streams chunks ``mixed_bs{N}_k{K}_c{C}_greedy``, a
+whole-prompt prefill group ``prefill_bs{N}_p{P}``. Lanes are padded to a
+power-of-two bucket of rows and prefill groups to a power-of-two batch, as
+in the reference, so few shapes exist. No entry branches on a host value:
+every per-dispatch value (tokens, positions, counters, block-table rows,
+chunk arrays, the chunk lane) is an input tensor. On a CUDA engine each
+entry is a CUDA graph, captured at its first use and replayed after
+(``serving/graphs.py``); on a CPU engine it runs eagerly.
 
 Host bookkeeping (admission, page growth, chunk schedule, finish order,
 block tables) follows the reference line for line, so on the same traffic
@@ -42,6 +54,7 @@ import torch
 
 from repro_torch.models import model as MD
 from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.serving.graphs import Entry, GraphPool
 from repro_torch.serving.kv_cache import PageAllocator
 from repro_torch.serving.sampler import SamplingParams, greedy_sample
 from repro_torch.serving.tokenizer import ByteTokenizer
@@ -125,7 +138,9 @@ class InferenceEngine:
                  tp_degree: int = 1, device="cuda"):
         """Same signature as the reference engine plus ``device``.
         ``seed`` is accepted for that parity; greedy decoding draws no
-        random numbers. ``params`` must already live on ``device``."""
+        random numbers. ``params`` must already live on ``device``; the
+        page store is allocated once and never replaced, since every
+        captured entry writes it in place."""
         for flag, on, item in (
                 ("paged=False", not paged, "dense KV layout"),
                 ("prefix_cache=True", prefix_cache, "radix prefix cache"),
@@ -168,7 +183,8 @@ class InferenceEngine:
                                          device=self.device)
         self.slots: List[Optional[RequestState]] = [None] * n_slots
         # host mirrors of the per-lane decode state (scheduling decisions;
-        # pushed to the device per block, refreshed from the block's copy)
+        # gathered into the entry's staging buffer per block, refreshed from
+        # the block's copy)
         self.positions = np.zeros(n_slots, np.int64)   # next position per slot
         self.last_token = np.zeros(n_slots, np.int64)
         self.live = np.zeros(n_slots, bool)
@@ -187,12 +203,19 @@ class InferenceEngine:
         self.prefill_groups = 0
         self.steps = 0
         self.chunk_steps = 0           # prompt chunks streamed into blocks
+        # chunk passes run: every step of a mixed block runs one, the
+        # length-0 passes past the last chunk included
+        self.chunk_passes = 0
         self.pages_grown_chunked = 0   # pages mapped per chunk, not at insert
         self.prefill_tokens_computed = 0   # prompt tokens actually prefilled
         self.decode_tokens = 0
         self.decode_syncs = 0          # host round trips on the decode path
         self.last_decode_s = 0.0       # decode wall time, last dispatch
         self._next_rid = 1000
+        # compiled entry-point table (the reference's names); the graphs of
+        # one engine share one memory pool
+        self.entry_points: Dict[str, Entry] = {}
+        self.graphs = GraphPool(self.device)
 
     # ------------------------------------------------------------------
     def submit(self, prompt_ids: List[int], *, max_new_tokens: int = 64,
@@ -306,14 +329,16 @@ class InferenceEngine:
 
     def _prefill_group(self, plen: int,
                        grp: List[Tuple[int, RequestState, List[int]]]) -> None:
+        # padded to a power of two (at most log2(n_slots) + 1 shapes a
+        # prompt bucket); rows past a prompt's length, and pad rows, write to
+        # the trash page (index n_pages), which no block table maps
         nb = len(grp)
+        npad = _next_pow2(nb)
         ps = self.pages.page_size
-        toks = np.zeros((nb, plen), np.int64)
-        lengths = np.ones(nb, np.int64)
-        # rows past a prompt's length write to the trash page (index
-        # n_pages), which no block table maps
-        page_ids = np.full((nb, plen), self.pages.n_pages, np.int64)
-        offs = np.zeros((nb, plen), np.int64)
+        toks = np.zeros((npad, plen), np.int64)
+        lengths = np.ones(npad, np.int64)
+        page_ids = np.full((npad, plen), self.pages.n_pages, np.int64)
+        offs = np.zeros((npad, plen), np.int64)
         for b, (slot, st, ids) in enumerate(grp):
             toks[b, : len(ids)] = ids
             lengths[b] = len(ids)
@@ -322,16 +347,12 @@ class InferenceEngine:
             t = np.arange(len(ids))
             page_ids[b, : len(ids)] = self.pages.block_table[slot, t // ps]
             offs[b, : len(ids)] = t % ps
-        dev = self.device
-        logits = MD.prefill_last(
-            self.cfg, self.params, torch.from_numpy(toks).to(dev),
-            torch.from_numpy(lengths).to(dev), cache=self.cache,
-            prompt_pages=(torch.from_numpy(page_ids).to(dev),
-                          torch.from_numpy(offs).to(dev)))
+        prefill = self._prefill_for(npad, plen)
+        out = prefill(toks=toks, lengths=lengths, page_ids=page_ids, offs=offs)
         self.prefill_groups += 1
-        self.prefill_tokens_computed += int(lengths.sum())
+        self.prefill_tokens_computed += int(lengths[:nb].sum())
         # the one device-to-host copy per prefill group
-        firsts = greedy_sample(logits).tolist()
+        firsts = out.tolist()
         t_first = time.monotonic()
         for b, (slot, st, _) in enumerate(grp):
             first = firsts[b]
@@ -349,6 +370,25 @@ class InferenceEngine:
             self.live[slot] = alive
             if not alive:
                 self._finish(slot)
+
+    def _prefill_for(self, npad: int, plen: int) -> Entry:
+        """The entry ``prefill_bs{npad}_p{plen}``: whole-prompt prefill of
+        ``npad`` rows padded to ``plen`` tokens, writing each row's K/V
+        through its page ids, to each row's greedy first token (npad,)."""
+        name = f"prefill_bs{npad}_p{plen}"
+        if name not in self.entry_points:
+            cfg, params, cache = self.cfg, self.params, self.cache
+
+            def prefill(toks, lengths, page_ids, offs):
+                logits = MD.prefill_last(cfg, params, toks, lengths, cache=cache,
+                                         prompt_pages=(page_ids, offs))
+                return greedy_sample(logits)
+
+            self.entry_points[name] = Entry(name, prefill, {
+                "toks": ((npad, plen), 0), "lengths": ((npad,), 1),
+                "page_ids": ((npad, plen), self.pages.n_pages),
+                "offs": ((npad, plen), 0)}, self.graphs)
+        return self.entry_points[name]
 
     def _admit_chunk_task(self, slot: int) -> None:
         """Admit the queue head into ``slot`` as the chunk task: host
@@ -395,6 +435,82 @@ class InferenceEngine:
         self.pages.release(slot)
         self._committed -= st.reserved_pages
 
+    def _fused_for(self, k: int, mode: str, bs: int,
+                   chunk_c: int) -> Tuple[Entry, bool]:
+        """The entry of a k-step block over a ``bs``-row bucket, optionally
+        running one ``chunk_c``-token prompt chunk pass per step
+        (``engine.py:705-824``). Returns (entry, was-already-warm).
+
+        Inputs, one row per lane: ``last``, ``pos``, ``gc``, ``max_new``,
+        ``live`` (bs,) and the block-table rows ``bt`` (bs, max_pages).
+        Pad rows are dead, with table rows of -1, so their writes go to the
+        trash page. A mixed block adds the chunk arrays ``ctoks`` (k, C),
+        ``cpos0``, ``clen``, ``cfin`` (k,) and the chunk lane ``lane``
+        (0-dim): step s runs the chunk pass of row s (length 0 past the
+        last chunk), and on the final chunk samples the request's first
+        token, flips the lane live and emits the token in-band. Returns
+        (2k + 1, bs) int64: the tokens of each step, which of them were
+        emitted, and the live mask after the block. Only ``greedy`` exists
+        so far."""
+        name = (f"decode_bs{bs}_k{k}_{mode}" if chunk_c == 0
+                else f"mixed_bs{bs}_k{k}_c{chunk_c}_{mode}")
+        warm = name in self.entry_points
+        if not warm:
+            cfg, params, cache = self.cfg, self.params, self.cache
+            eos_id, max_len = self.eos_id, self.max_len
+            has_chunk = chunk_c > 0
+
+            def fused(last, pos, gc, max_new, live, bt, ctoks=None, cpos0=None,
+                      clen=None, cfin=None, lane=None):
+                live, bt = live != 0, bt.to(torch.int32)
+                if has_chunk:
+                    at_lane = torch.arange(bs, device=live.device) == lane
+                    lane_max_new = max_new.index_select(0, lane.reshape(1))
+                toks, emitted = [], []
+                for s in range(k):
+                    nxt = MD.decode_sample_step(cfg, params, last[:, None], pos,
+                                                cache, bt, greedy_sample, live=live)
+                    nxt = torch.where(live, nxt, last)
+                    pos2 = torch.where(live, pos + 1, pos)
+                    gc2 = torch.where(live, gc + 1, gc)
+                    # same finish rule as the host bookkeeping: EOS, token
+                    # budget, or KV-region cap (prompt_len + gen >= max_len - 1)
+                    hit = ((nxt == eos_id) | (gc2 >= max_new)
+                           | (pos2 >= max_len - 2))
+                    live2 = live & ~hit
+                    emit_t, emit_v = nxt, live
+                    if has_chunk:
+                        logits = MD.prefill_chunk_step(
+                            cfg, params, ctoks[s], cpos0[s], clen[s], lane, cache,
+                            block_table=bt)
+                        # the first token and the lane's flip to live stay
+                        # on the device; they reach the host with the block
+                        first = greedy_sample(logits[None])
+                        plen = cpos0[s] + clen[s]
+                        alive = ((first != eos_id) & (lane_max_new > 1)
+                                 & (plen + 1 < max_len - 1))
+                        upd = at_lane & (cfin[s] != 0)
+                        nxt = torch.where(upd, first, nxt)
+                        pos2 = torch.where(upd, plen, pos2)
+                        gc2 = torch.where(upd, 1, gc2)
+                        live2 = torch.where(upd, alive, live2)
+                        emit_t = torch.where(upd, first, emit_t)
+                        emit_v = emit_v | upd
+                    toks.append(emit_t)
+                    emitted.append(emit_v)
+                    live, last, pos, gc = live2, nxt, pos2, gc2
+                return torch.cat([torch.stack(toks), torch.stack(emitted).long(),
+                                  live.long()[None]])
+
+            layout = {"last": ((bs,), 0), "pos": ((bs,), 0), "gc": ((bs,), 0),
+                      "max_new": ((bs,), 1), "live": ((bs,), 0),
+                      "bt": ((bs, self.pages.max_pages), -1)}
+            if has_chunk:
+                layout.update(ctoks=((k, chunk_c), 0), cpos0=((k,), 0),
+                              clen=((k,), 0), cfin=((k,), 0), lane=((), 0))
+            self.entry_points[name] = Entry(name, fused, layout, self.graphs)
+        return self.entry_points[name], warm
+
     def _pick_k(self) -> int:
         """Block length: the power-of-two ceiling of the soonest
         *deterministic* finish (token budget / KV cap), capped at
@@ -412,8 +528,9 @@ class InferenceEngine:
         """One continuous-batching dispatch: refill free slots (chunk-task
         admission when lanes are live, grouped whole-prompt prefill when
         idle), then run up to ``decode_block`` greedy steps, each decoding
-        every live lane and streaming at most one prompt chunk, with one
-        device-to-host copy at the end. Returns tokens emitted (0 if idle)."""
+        every live lane and streaming at most one prompt chunk, in the entry
+        point bucketed to live occupancy, with one device-to-host copy at
+        the end. Returns tokens emitted (0 if idle)."""
         self._try_prefill()
         self.peak_concurrent = max(
             self.peak_concurrent, sum(s is not None for s in self.slots))
@@ -422,26 +539,40 @@ class InferenceEngine:
         task = self._task
         if not self.live.any() and task is None:
             return 0
+        # ----- bucket selection: live lanes plus the chunk-task lane ----
         lanes = set(int(i) for i in np.nonzero(self.live)[0])
         if task is not None:
             lanes.add(task.slot)
         rows = np.sort(np.fromiter(lanes, np.int64))
+        bs = min(self.n_slots, _next_pow2(len(rows)))
+        if bs == self.n_slots:
+            rows_full = np.arange(self.n_slots, dtype=np.int64)
+        else:
+            # pad rows carry slot id n_slots: dead, unmapped, budget 1
+            rows_full = np.full(bs, self.n_slots, np.int64)
+            rows_full[: len(rows)] = rows
+        # ----- block length + per-step chunk arrays ---------------------
         k = self._pick_k() if self.live.any() else self.decode_block
-        # per-step prompt chunks (pos0, length, final) of the chunk task
-        chunks: List[Tuple[int, int, bool]] = []
+        chunk_c = 0
         finishing = False
         nxt_p = 0
         if task is not None:
-            rem = -(-(task.plen - task.next) // task.chunk)
+            chunk_c = task.chunk
+            rem = -(-(task.plen - task.next) // chunk_c)
             # shrink the block toward the chunks actually left
             k = max(1, min(k, _next_pow2(rem)))
-            ctoks = np.zeros((k, task.chunk), np.int64)
+            ctoks = np.zeros((k, chunk_c), np.int64)
+            cpos0 = np.zeros(k, np.int64)
+            clen = np.zeros(k, np.int64)
+            cfin = np.zeros(k, bool)
             nxt_p = task.next
             for s in range(k):
                 if nxt_p < task.plen:
-                    n = min(task.chunk, task.plen - nxt_p)
+                    n = min(chunk_c, task.plen - nxt_p)
                     ctoks[s, :n] = task.ids[nxt_p:nxt_p + n]
-                    chunks.append((nxt_p, n, nxt_p + n == task.plen))
+                    cpos0[s] = nxt_p
+                    clen[s] = n
+                    cfin[s] = nxt_p + n == task.plen
                     nxt_p += n
                     self.chunk_steps += 1
             finishing = nxt_p == task.plen
@@ -464,63 +595,36 @@ class InferenceEngine:
                 task.slot, tgt)
         self.peak_pages_in_use = max(self.peak_pages_in_use,
                                      self.pages.pages_in_use())
-        dev = self.device
-        bt, _ = self.pages.device_tables(dev, rows)
-        last = torch.from_numpy(self.last_token[rows]).to(dev)
-        pos = torch.from_numpy(self.positions[rows]).to(dev)
-        gc = torch.from_numpy(self.gen_count[rows]).to(dev)
-        max_new = torch.from_numpy(self.max_new[rows]).to(dev)
-        live = torch.from_numpy(self.live[rows]).to(dev)
+        # ----- the bucket's inputs, gathered from the host mirrors ------
+        real = rows_full < self.n_slots
+        bt = np.full((bs, self.pages.max_pages), -1, np.int64)
+        bt[real] = self.pages.block_table[rows_full[real]]
+
+        def gath(a, fill):
+            out = np.full(bs, fill, np.int64)
+            out[real] = a[rows_full[real]]
+            return out
+
+        inputs = dict(last=gath(self.last_token, 0), pos=gath(self.positions, 0),
+                      gc=gath(self.gen_count, 0), max_new=gath(self.max_new, 1),
+                      live=gath(self.live, 0), bt=bt)
         if task is not None:
-            lane = int(np.searchsorted(rows, task.slot))
-            lane_mask = torch.from_numpy(rows == task.slot).to(dev)
-            ctoks_dev = torch.from_numpy(ctoks).to(dev)
-        toks, emitted = [], []
+            inputs.update(ctoks=ctoks, cpos0=cpos0, clen=clen, cfin=cfin,
+                          lane=int(np.searchsorted(rows_full, task.slot)))
+        fn, warm = self._fused_for(k, "greedy", bs, chunk_c)
         t_dec = time.monotonic()
-        for s in range(k):
-            nxt = MD.decode_sample_step(self.cfg, self.params, last[:, None],
-                                        pos, self.cache, bt, greedy_sample,
-                                        live=live)
-            nxt = torch.where(live, nxt, last)
-            pos2 = torch.where(live, pos + 1, pos)
-            gc2 = torch.where(live, gc + 1, gc)
-            # same finish rule as the host bookkeeping: EOS, token budget,
-            # or KV-region cap (prompt_len + gen >= max_len - 1)
-            hit = ((nxt == self.eos_id) | (gc2 >= max_new)
-                   | (pos2 >= self.max_len - 2))
-            live2 = live & ~hit
-            emit_t, emit_v = nxt, live
-            if s < len(chunks):
-                pos0, n, final = chunks[s]
-                logits = MD.prefill_chunk_step(
-                    self.cfg, self.params, ctoks_dev[s], pos0, n, lane,
-                    self.cache, block_table=bt)
-                if final:
-                    # the first token and the lane's flip to live stay on
-                    # the device; they reach the host with the block
-                    first = greedy_sample(logits[None])
-                    plen = pos0 + n
-                    alive = first != self.eos_id
-                    if not (self.max_new[task.slot] > 1
-                            and plen + 1 < self.max_len - 1):
-                        alive = torch.zeros_like(alive)
-                    nxt = torch.where(lane_mask, first, nxt)
-                    pos2 = torch.where(lane_mask, plen, pos2)
-                    gc2 = torch.where(lane_mask, 1, gc2)
-                    live2 = torch.where(lane_mask, alive, live2)
-                    emit_t = torch.where(lane_mask, first, emit_t)
-                    emit_v = emit_v | lane_mask
-            toks.append(emit_t)
-            emitted.append(emit_v)
-            live, last, pos, gc = live2, nxt, pos2, gc2
+        out = fn(**inputs)
         # the single device-to-host copy for this block of <= k*bs tokens
-        block = torch.cat([torch.stack(toks), torch.stack(emitted).long(),
-                           live.long()[None]]).cpu().numpy()
-        self.last_decode_s = time.monotonic() - t_dec
+        block = out.cpu().numpy()
+        # decode wall time for this dispatch; 0.0 when it built its entry,
+        # so the straggler detector never samples a capture
+        self.last_decode_s = (time.monotonic() - t_dec) if warm else 0.0
         toks_h, valid = block[:k], block[k:2 * k].astype(bool)
         live_final = block[2 * k].astype(bool)
         self.decode_syncs += 1
         self.steps += k
+        if task is not None:
+            self.chunk_passes += k
         finish_order: List[Tuple[int, int]] = []
         n_decoded = 0
         # partition each step's share of the block wall time across the
@@ -530,8 +634,12 @@ class InferenceEngine:
         share = dt_step / np.maximum(live_steps, 1)
         dead_s = dt_step * int((live_steps == 0).sum())
         total_valid = max(int(valid.sum()), 1)
-        for b, i in enumerate(int(x) for x in rows):
+        for b, i in enumerate(int(x) for x in rows_full):
+            if i >= self.n_slots:
+                continue
             st = self.slots[i]
+            if st is None:
+                continue
             col = valid[:, b]
             news = [int(t) for t in toks_h[col, b]]
             st.decode_s += float(share[col].sum()) \

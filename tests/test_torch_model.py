@@ -187,8 +187,9 @@ def test_prefill_chunk_step_matches_reference(models, kv_int8):
         toks[:n] = prompt[pos0:pos0 + n]
         want, jcache = jstep(jnp.asarray(toks, jnp.int32), jnp.int32(pos0),
                              jnp.int32(n), jcache)
-        got = MD.prefill_chunk_step(cfg, params, torch.from_numpy(toks), pos0, n, 1,
-                                    cache, block_table=torch.from_numpy(bt))
+        got = MD.prefill_chunk_step(cfg, params, torch.from_numpy(toks),
+                                    *map(torch.tensor, (pos0, n, 1)), cache,
+                                    block_table=torch.from_numpy(bt))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL,
                                    err_msg=f"chunk at {pos0}")
     for seg, jseg in zip(cache, jcache):
@@ -229,8 +230,9 @@ def test_int8_chunk_logits_part_from_whole_prompt_as_reference(models, kv_int8):
         jchunk, jcache = JMD.prefill_chunk_step(
             jcfg, jp, jnp.asarray(toks, jnp.int32), jnp.int32(pos0), jnp.int32(n),
             jnp.int32(1), jcache, block_table=jnp.asarray(bt))
-        chunk = MD.prefill_chunk_step(cfg, params, torch.from_numpy(toks), pos0, n, 1,
-                                      cache, block_table=torch.from_numpy(bt))
+        chunk = MD.prefill_chunk_step(cfg, params, torch.from_numpy(toks),
+                                      *map(torch.tensor, (pos0, n, 1)), cache,
+                                      block_table=torch.from_numpy(bt))
     jwhole, _, _ = JMD.forward(jcfg, jp, jnp.asarray(prompt[None], jnp.int32),
                                mode="prefill", max_len=64)
     whole = MD.forward(cfg, params, torch.from_numpy(prompt[None]), mode="prefill")

@@ -59,10 +59,39 @@ Phases; any failure raises and the script exits non-zero:
                and live mask must be identical and the page store equal
                byte for byte outside the write-only trash page; the host
                wall of each is printed.
+  7. gateway - Sprout's control plane over the same weights: SproutGateway
+               with two regional pools (CA, TX; watchdog-wrapped June
+               traces), one full-width engine each (8 slots, max_len 1024,
+               EOS off, so budgets bound every request), the directive LP
+               re-planned per pool every hour, the evaluator's q installed
+               before each hour, and 4 hours of 12 workload requests with
+               per-level budgets, routed green under a load cap of 8. Drive
+               A builds the entry tables; drive B, a fresh gateway with the
+               same seeds on the same engines, is measured with the tables
+               frozen, and must finish the same tokens, levels and pools
+               with the same hourly mixes and carbon (no decision reads
+               wall time). Both: every request served, none rejected, each
+               mix a distribution, each plan on its Eq. 3 floor, the carbon
+               ledger balanced. B's launches are held to both engines'
+               forward passes and to its replays' kernel nodes; no plain
+               version runs in A or B. Prints each hour's intensity, mix,
+               routes and carbon, each pool's decode tokens/s, and B's
+               requests re-priced on the H100 (J per generated token,
+               mgCO2 per request) from the model's power times measured
+               decode seconds and from the roofline.
+  8. cli     - the port's serving entry point, `main` of
+               repro_torch.launch.serve (what `python -m
+               repro_torch.launch.serve --gateway --paged ...` runs), in this
+               process: three hours of 12 requests over CA and TX at full
+               width, one line an hour, 0 rejected, a solved plan in the
+               last hour. Its launches are zeroed before and read after,
+               and held to its engines' forward passes and to the kernel
+               nodes its replays ran; no plain version may run.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -1076,6 +1105,280 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     return launches
 
 
+GATEWAY_HOURS = 4
+GATEWAY_REQUESTS = 12          # a simulated hour's requests
+
+
+def gateway_drive(engines):
+    """One closed-loop drive of Sprout's control plane, as the serving
+    launcher's ``run_gateway`` drives it: two regional pools (CA, TX), each
+    a watchdog-wrapped June trace and a scheduler over one of ``engines``;
+    the directive LP (``SproutPolicy``) re-planned per pool every hour; the
+    evaluator's q installed before each hour; 12 workload requests an hour
+    with per-level budgets (``serve_request_from``), routed green under a
+    load cap of 8 and served to idle; Eq. 1 carbon on the reference's
+    accounting (A100, the LLAMA2_13B profile, modeled time). Returns the
+    gateway, {rid: (pool, level, tokens)}, the hour summaries and the wall
+    seconds of the hours."""
+    from repro_torch.core import (A100_40GB, LLAMA2_13B, CarbonIntensityProvider,
+                                  EnergyModel, QualityEvaluator, Workload)
+    from repro_torch.core.carbon import WatchdogProvider
+    from repro_torch.core.policies import SproutPolicy
+    from repro_torch.serving import (CarbonAwareScheduler, SproutGateway,
+                                     serve_request_from)
+    provs = [WatchdogProvider(CarbonIntensityProvider(r, "jun")) for r in ("CA", "TX")]
+    policy = SproutPolicy(k0_min=min(p.k_min for p in provs),
+                          k0_max=max(p.k_max for p in provs), xi=0.1,
+                          k1=A100_40GB.embodied_gco2 / A100_40GB.lifetime_s)
+    gw = SproutGateway([(p, CarbonAwareScheduler([e])) for p, e in zip(provs, engines)],
+                       policy=policy, energy=EnergyModel(A100_40GB),
+                       model_profile=LLAMA2_13B, load_cap=8)
+    finished = {}
+    gw.on_finish = lambda key, fin: finished.__setitem__(
+        fin.rid, (key, fin.directive_level, tuple(fin.token_ids)))
+    workload, evaluator = Workload(seed=0), QualityEvaluator(sample_size=200)
+    hours = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for hour in range(GATEWAY_HOURS):
+        pool_sample = [workload.sample_request(hour + i * 0.01) for i in range(300)]
+        gw.set_quality(evaluator.evaluate(pool_sample).q)
+        reqs = [serve_request_from(workload.sample_request(hour + i * 0.01),
+                                   token_scale=320.0 / 64, max_new=64)
+                for i in range(GATEWAY_REQUESTS)]
+        hours.append(gw.run_hour(float(hour), reqs))
+    torch.cuda.synchronize()
+    return gw, finished, hours, time.monotonic() - t0
+
+
+def check_gateway_drive(gw, finished, hours, label):
+    """Every request served and none rejected, in every hour; each installed
+    mix a distribution; each plan on its Eq. 3 floor; the ledger balanced."""
+    st = gw.stats
+    for s in hours:
+        h = int(s["t"])
+        check(s["served"] == GATEWAY_REQUESTS and sum(s["routes"].values())
+              == GATEWAY_REQUESTS, f"{label} hour {h}: served {s['served']}, "
+              f"routes {s['routes']}")
+        for key, x in s["x"].items():
+            check(abs(float(np.sum(x)) - 1.0) < 1e-9 and bool(np.all(x >= 0)),
+                  f"{label} hour {h} {key}: installed x {x}")
+    check(st.rejected == 0, f"{label}: rejected {st.rejected_reasons}")
+    check(st.requests == len(finished) == GATEWAY_HOURS * GATEWAY_REQUESTS,
+          f"{label}: {st.requests} accounted, {len(finished)} finished")
+    for p in st.plans:
+        check(p.expected_quality >= p.q_lb - 1e-9,
+              f"{label}: plan at t={p.t} {p.pool} ({p.solver}) quality "
+              f"{p.expected_quality} under its floor {p.q_lb}")
+    total = sum(st.carbon_by_pool.values()) + sum(st.wasted_by_pool.values())
+    check(abs(st.carbon_g - total) <= 1e-12 * abs(st.carbon_g),
+          f"{label}: ledger {st.carbon_g} != pools {total}")
+
+
+def gateway_ledger(telemetry, profile, hw, trust_wall_time):
+    """(J per generated token, mgCO2 per request) of the served requests,
+    re-priced on ``hw`` with ``profile``: the model's power draw times the
+    measured decode seconds (``trust_wall_time``), or the roofline model
+    throughout. No power draw is sampled."""
+    from repro_torch.core import PUE, EnergyModel, request_carbon
+    em = EnergyModel(hw, trust_wall_time=trust_wall_time)
+    joules = grams = 0.0
+    for r in telemetry:
+        kwh, secs = em.measure(profile, r.prompt_tokens, r.gen_tokens, r.decode_s)
+        kwh *= PUE
+        joules += kwh * 3.6e6
+        grams += request_carbon(r.k0, kwh, secs, hw.embodied_gco2, hw.lifetime_s,
+                                pue=1.0)
+    return (joules / sum(r.gen_tokens for r in telemetry),
+            1e3 * grams / len(telemetry))
+
+
+def gateway_phase(cfg, params, kernels, plain_calls):
+    """Sprout's control plane over two full-width engines (one a pool):
+    drive A builds the engines' entry tables; drive B, a fresh gateway with
+    the same seeds on the same engines, is measured with the tables frozen
+    and must decide exactly what A decided, since no decision reads wall
+    time (``trust_wall_time=False``, no deadlines, one engine a pool so
+    the straggler detector is inert). Returns each kernel's launches in
+    B, held to both engines' forward passes and to B's replayed nodes."""
+    from repro_torch.core import H100_SXM_80GB, ModelProfile
+    from repro_torch.models import model as MD
+    from repro_torch.serving import InferenceEngine
+    engines = [InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
+                               page_size=32, decode_block=8, eos_id=-1, device="cuda")
+               for _ in range(2)]
+    plain_calls.clear()
+    gw_a, fin_a, hours_a, wall_a = gateway_drive(engines)
+    check(not plain_calls, f"gateway A: plain versions called while the entries "
+          f"were built: {plain_calls}")
+    check_gateway_drive(gw_a, fin_a, hours_a, "gateway A")
+    for i, eng in enumerate(engines):
+        check_graph_nodes(eng, f"gateway engine {i}")
+    tables = [sorted(eng.entry_points) for eng in engines]
+    captures = [eng.graphs.captures for eng in engines]
+    passes0 = [(eng.prefill_groups, eng.steps, eng.chunk_passes, eng.decode_tokens)
+               for eng in engines]
+    for kern in kernels.values():
+        kern.launches = 0
+    plain_calls.clear()
+    replays = {}
+    with counted_replays(engines[0], replays), counted_replays(engines[1], replays):
+        gw_b, fin_b, hours_b, wall_b = gateway_drive(engines)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    plain = dict(plain_calls)
+    check_gateway_drive(gw_b, fin_b, hours_b, "gateway B")
+    check([sorted(eng.entry_points) for eng in engines] == tables
+          and [eng.graphs.captures for eng in engines] == captures,
+          f"gateway B: entry tables grew: "
+          f"{[sorted(set(e.entry_points) - set(t)) for e, t in zip(engines, tables)]}")
+    # the card decides what it decided before: no decision read wall time
+    check(fin_b == fin_a, "gateway B finished other tokens, levels or pools than A")
+    for a, b in zip(hours_a, hours_b):
+        check(a["routes"] == b["routes"] and a["carbon_g"] == b["carbon_g"]
+              and all(np.array_equal(a["x"][k], b["x"][k]) for k in a["x"]),
+              f"gateway hour {int(a['t'])}: A and B differ: routes {a['routes']} "
+              f"{b['routes']}, x {a['x']} {b['x']}, carbon {a['carbon_g']} {b['carbon_g']}")
+    check(gw_b.stats.carbon_g == gw_a.stats.carbon_g,
+          f"gateway carbon: A {gw_a.stats.carbon_g} != B {gw_b.stats.carbon_g}")
+    fwd = [(eng.prefill_groups - g, eng.steps - s, eng.chunk_passes - c)
+           for eng, (g, s, c, _) in zip(engines, passes0)]
+    want = {name: sum(expected_launches(cfg.n_layers, *f)[name] for f in fwd)
+            for name in kernels}
+    check(launches == want, f"gateway B: launches {launches} != expected {want} from "
+          f"(prefill groups, decode steps, chunk passes) {fwd}")
+    ran = graph_launches(replays)
+    check(ran == launches, f"gateway B: its {sum(replays.values())} replays ran "
+          f"kernels {ran} by their graphs; counted {launches}")
+    check(sum(plain.values()) == 0, f"gateway B: plain versions called: {plain}")
+    smi = nvidia_smi()
+    for s in hours_b:
+        pools = "; ".join(
+            f"{k} {s['k0'][k]:.1f} gCO2/kWh x {np.round(s['x'][k], 4).tolist()} "
+            f"routed {s['routes'][k]}" for k in s["k0"])
+        print(f"gateway hour {int(s['t'])}: {pools}; served {s['served']}, carbon "
+              f"{s['carbon_g']:.6f} g, level mix {np.round(s['level_mix'], 3).tolist()}")
+    solvers = sorted({p.solver for p in gw_b.stats.plans})
+    print(f"gateway: A and B identical ({len(fin_b)} requests: tokens, levels, pools, "
+          f"hourly x and carbon); plans by {solvers}; B launches {launches} (= expected "
+          f"= the kernel nodes of its {sum(replays.values())} replays), plain calls "
+          f"{plain or 0} (A 0); entries {[len(t) for t in tables]}, captures "
+          f"{[eng.graphs.captures for eng in engines]} in "
+          f"{[round(eng.graphs.capture_ms) for eng in engines]} ms; A wall "
+          f"{wall_a:.3f} s, B wall {wall_b:.3f} s ({smi})")
+    for pool, (groups, steps, _), (_, _, _, tok0), eng in zip(gw_b.pools, fwd, passes0,
+                                                              engines):
+        dec_s = sum(r.decode_s for r in gw_b.stats.telemetry if r.pool == pool.key)
+        dec_tokens = eng.decode_tokens - tok0
+        print(f"gateway pool {pool.key}: {pool.routed} requests in {groups} prefill "
+              f"groups; decode tokens {dec_tokens} in {steps} decode steps "
+              f"({dec_tokens / steps:.2f} lanes live a step), {dec_s:.3f} s = "
+              f"{dec_tokens / dec_s:.1f} tok/s, {1e3 * dec_s / steps:.2f} ms a step "
+              f"(B's replayed dispatches; {smi})")
+    # the card's own ledger beside the reference's roofline, for granite on
+    # the H100: measured decode seconds against modeled ones
+    profile = ModelProfile(
+        "granite-3-2b", float(MD.param_count(params)),
+        kv_bytes_per_token=cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2.0,
+        d_model=cfg.d_model, n_layers=cfg.n_layers)
+    tel = gw_b.stats.telemetry
+    j_meas, mg_meas = gateway_ledger(tel, profile, H100_SXM_80GB, True)
+    j_model, mg_model = gateway_ledger(tel, profile, H100_SXM_80GB, False)
+    st = gw_b.stats
+    print(f"gateway ledger, reference accounting (A100, llama2-13b profile, modeled): "
+          f"{st.carbon_g:.6f} g over {st.requests} requests "
+          f"({1e3 * st.carbon_per_request:.4f} mg/request), "
+          f"{st.energy_kwh * 3.6e6 / sum(r.gen_tokens for r in tel):.4f} J/generated token")
+    print(f"gateway ledger, card ({H100_SXM_80GB.name}, granite-3-2b profile "
+          f"{profile.n_params / 1e9:.3f} B params, {profile.kv_bytes_per_token:.0f} KV "
+          f"B/token): modeled power x measured decode seconds {j_meas:.4f} J/generated token, "
+          f"{mg_meas:.4f} mgCO2/request; roofline {j_model:.4f} J/generated token, "
+          f"{mg_model:.4f} mgCO2/request ({smi})")
+    return launches
+
+
+# the port's serving entry point as a user starts it; three hours of 12
+# requests, so that both pools serve and the third hour's plan is solved
+# (the LP waits for five profiled requests at every level)
+CLI_ARGV = ["--gateway", "--paged", "--regions", "CA,TX", "--replicas", "1",
+            "--slots", "8", "--hours", "3", "--requests", "12"]
+
+
+@contextlib.contextmanager
+def counted_entry_runs(replays):
+    """Count the runs of every entry, built before or inside the block,
+    into ``replays`` ({entry: runs}). On the card every run is a replay: a
+    dispatch that builds its entry captures it and then replays it."""
+    from repro_torch.serving.graphs import Entry
+    run = Entry.run
+
+    def counted(self):
+        replays[self] = replays.get(self, 0) + 1
+        return run(self)
+
+    Entry.run = counted
+    try:
+        yield
+    finally:
+        Entry.run = run
+
+
+def cli_phase(cfg, kernels, plain_calls):
+    """The port's serving entry point on the card: ``repro_torch.launch.serve``
+    ``main(CLI_ARGV)``, what ``python -m repro_torch.launch.serve`` runs,
+    driven in this process so that its launches are held. The counts are
+    zeroed just before and read just after; they must equal the expected
+    launches over its own engines' forward passes (max_len 96, built by the
+    launcher) and the kernel nodes their replays ran, and no plain version
+    may run. Its lines must show every hour, 0 rejected, and a solved plan.
+    Returns each kernel's launches."""
+    from repro_torch.launch import serve as cli
+    for kern in kernels.values():
+        kern.launches = 0
+    plain_calls.clear()
+    replays = {}
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with counted_entry_runs(replays), contextlib.redirect_stdout(out):
+        gw = cli.main(CLI_ARGV)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    plain = dict(plain_calls)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"cli: {line}")
+    hours = int(CLI_ARGV[CLI_ARGV.index("--hours") + 1])
+    requests = int(CLI_ARGV[CLI_ARGV.index("--requests") + 1])
+    total = [ln for ln in lines if ln.startswith("total:")]
+    check(len(total) == 1 and ", 0 rejected," in total[0], f"cli total line {total}")
+    check([ln.split(":")[0] for ln in lines if ln.startswith("hour ")]
+          == [f"hour {h}" for h in range(hours)], "cli: not one line an hour")
+    st = gw.stats
+    check(st.rejected == 0 and st.requests == hours * requests,
+          f"cli: {st.requests} accounted, rejected {st.rejected_reasons}")
+    solvers = sorted({p.solver for p in st.plans})
+    check(set(solvers) - {"warmup"}, f"cli: no hour ran a solved plan: {solvers}")
+    engines = [eng for pool in gw.pools for eng in pool.scheduler.engines]
+    for i, eng in enumerate(engines):
+        check_graph_nodes(eng, f"cli engine {i}")
+    fwd = [(eng.prefill_groups, eng.steps, eng.chunk_passes) for eng in engines]
+    want = {name: sum(expected_launches(cfg.n_layers, *f)[name] for f in fwd)
+            for name in kernels}
+    check(launches == want, f"cli: launches {launches} != expected {want} from "
+          f"(prefill groups, decode steps, chunk passes) {fwd}")
+    ran = graph_launches(replays)
+    check(ran == launches, f"cli: its {sum(replays.values())} replays ran kernels "
+          f"{ran} by their graphs; counted {launches}")
+    check(sum(plain.values()) == 0, f"cli: plain versions called: {plain}")
+    print(f"cli: `python -m repro_torch.launch.serve {' '.join(CLI_ARGV)}` in "
+          f"{wall:.1f} s (model init and captures included), 0 rejected; plans by "
+          f"{solvers}; launches {launches} (= expected over its engines' (prefill "
+          f"groups, decode steps, chunk passes) {fwd} = the kernel nodes of its "
+          f"{sum(replays.values())} replays), plain calls {plain or 0}; entries "
+          f"{[len(eng.entry_points) for eng in engines]}")
+    return launches
+
+
 def serve_phase():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
@@ -1115,6 +1418,10 @@ def serve_phase():
                 for name, n in serve(cfg, params, kv_int8, chunk, kernels,
                                      plain_calls).items():
                     totals[name] += n
+            for name, n in gateway_phase(cfg, params, kernels, plain_calls).items():
+                totals[name] += n
+            for name, n in cli_phase(cfg, kernels, plain_calls).items():
+                totals[name] += n
     finally:
         for name, fn in originals.items():
             setattr(ref, f"{name}_ref", fn)

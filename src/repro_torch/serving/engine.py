@@ -163,6 +163,9 @@ class InferenceEngine:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
+        # the only layout the port has; the gateway's migration planner
+        # reads it, as on the reference engine
+        self.paged = True
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos_id = eos_id
@@ -734,13 +737,13 @@ class InferenceEngine:
     def kv_stats(self) -> Dict[str, float]:
         """KV-memory telemetry: allocator occupancy/fragmentation plus bytes
         mapped (pages_in_use x page_bytes, across every layer's store).
-        Capacity counts the trash page too."""
+        Capacity is the page budget's bytes, as on the reference engine:
+        the trash page, which no request can map, is not capacity."""
         leaves = [x for seg in self.cache for x in seg.values()]
-        total_bytes = sum(x.numel() * x.element_size() for x in leaves)
         page_bytes = sum(x[:, 0].numel() * x.element_size() for x in leaves)
         rep = self.pages.report()
         rep.update(layout="paged", page_bytes=page_bytes,
-                   kv_bytes_capacity=total_bytes,
+                   kv_bytes_capacity=self.pages.n_pages * page_bytes,
                    kv_bytes_in_use=rep["pages_in_use"] * page_bytes,
                    peak_pages_in_use=self.peak_pages_in_use,
                    peak_kv_bytes_in_use=self.peak_pages_in_use * page_bytes,

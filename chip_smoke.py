@@ -8,7 +8,9 @@ Phases; any failure raises and the script exits non-zero:
   2. build   - nvcc builds the kernels from src/repro_torch/kernels/csrc;
                ptxas's registers, shared memory and spills per kernel, and
                the count of tensor-core (HMMA) instructions in the SASS of
-               the bf16 flash kernels (cuobjdump, where the toolkit has it).
+               the bf16 flash kernels (cuobjdump, where the toolkit has it);
+               the flash instantiations at head_dim 128 on lines of their
+               own.
   3. kernel  - each hand-written kernel (paged attention, fused RMSNorm,
                flash-attention prefill) against its plain PyTorch version
                on the card, with its time, the plain version's time, the
@@ -16,22 +18,31 @@ Phases; any failure raises and the script exits non-zero:
                time of the one PyTorch call that computes the same
                function, where there is one (timed only, never on a path);
                for paged attention also the host's cost of issuing a call.
-               bf16 flash outputs are held to one bf16 ulp of the output
-               scale (and 2e-2) on under 1 % of the outputs (fp32 P·V).
-  4. small   - the reduced granite config in fp32: the engine on the card
-               (kernel path) emits the same greedy tokens as on the CPU
-               (plain path), whole-prompt and with chunked prefill (chunk
-               8), and chunked gives the same tokens as whole-prompt; for
-               fp32 and int8 KV.
-  5. serve   - the main path: full-width granite-3-2b in bf16 (random
-               weights from a seed) served through CarbonAwareScheduler ->
+               Granite's shapes, and Llama 2's: flash at head_dim 128,
+               RMSNorm at d 4096 and 5120 (and minicpm's 2304), paged
+               attention at llama2-13b's 40 heads of 128. bf16 flash
+               outputs are held to one bf16 ulp of the output scale (and
+               2e-2) on under 1 % of the outputs (fp32 P·V).
+  4. small   - the reduced llama2-13b (untied embeddings) and granite
+               configs in fp32 (vocab 512): the engine on the card (kernel
+               path) emits the same greedy tokens as on the CPU (plain
+               path), whole-prompt and with chunked prefill (chunk 8), and
+               chunked gives the same tokens as whole-prompt; for fp32 and
+               int8 KV.
+  5. serve   - the main path: full-width llama2-13b, the paper's model, in
+               bf16 (random weights from a seed; each model's weights are
+               freed before the next is drawn) served through
+               CarbonAwareScheduler ->
                paged InferenceEngine -> its entry points, each a CUDA graph
                captured at first use and replayed after -> CUDA kernels
                (RMSNorm in every forward pass, flash attention in every
                whole-prompt prefill group, paged attention in every decode
                step), three times: bf16 KV, int8 KV, and bf16 KV with
                chunked prefill (chunk 48, so chunks straddle the 32-token
-               pages). Each run drives its traffic once to build the entry
+               pages); then one bf16 run each of full-width llama2-7b,
+               minicpm-2b and granite-3-2b (GQA groups of 4), each after a
+               full-width forward pass (finite logits of the vocabulary's
+               width). Each run drives its traffic once to build the entry
                table, then again with the table frozen (its names are
                snapshotted before and after, and must not change), so
                decode tokens/s comes from replayed dispatches only. No
@@ -51,7 +62,8 @@ Phases; any failure raises and the script exits non-zero:
                (held to the counters and the forward passes; the
                profiler's kernel events may fall short of them, never
                above) and the span of the one replay (CUDA events), which
-               may not exceed the wall.
+               may not exceed the wall. Each model's peak device memory and
+               wall seconds are printed.
   6. graphs  - inside each run's profile, one block (a decode block; a mixed
                block in the chunked run) is run twice from one state: the
                entry's eager callable, then, with the page store and the
@@ -59,7 +71,7 @@ Phases; any failure raises and the script exits non-zero:
                and live mask must be identical and the page store equal
                byte for byte outside the write-only trash page; the host
                wall of each is printed.
-  7. gateway - Sprout's control plane over the same weights: SproutGateway
+  7. gateway - Sprout's control plane over llama2-13b's weights: SproutGateway
                with two regional pools (CA, TX; watchdog-wrapped June
                traces), one full-width engine each (8 slots, max_len 1024,
                EOS off, so budgets bound every request), the directive LP
@@ -77,20 +89,24 @@ Phases; any failure raises and the script exits non-zero:
                version runs in A or B. Prints each hour's intensity, mix,
                routes and carbon, each pool's decode tokens/s, and B's
                requests re-priced on the H100 (J per generated token,
-               mgCO2 per request) from the model's power times measured
-               decode seconds and from the roofline.
+               mgCO2 per request) for the served model (its parameter count
+               and KV bytes a token) from the model's power times measured
+               decode seconds and from the roofline, beside the reference's
+               own accounting, which prices the same model (LLAMA2_13B).
   8. cli     - the port's serving entry point, `main` of
                repro_torch.launch.serve (what `python -m
                repro_torch.launch.serve --gateway --paged ...` runs), in this
-               process: three hours of 12 requests over CA and TX at full
-               width, one line an hour, 0 rejected, a solved plan in the
-               last hour. Its launches are zeroed before and read after,
+               process: no --arch, so the default llama2-13b, drawn anew
+               after the serve phase's weights are freed; three hours of 12
+               requests over CA and TX at full width, one line an hour, 0
+               rejected, a solved plan in the last hour. Its launches are zeroed before and read after,
                and held to its engines' forward passes and to the kernel
                nodes its replays ran; no plain version may run.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
 import contextlib
+import gc
 import io
 import itertools
 import json
@@ -278,6 +294,8 @@ PAGED_SHAPES = {
     # + trash): one split, so the split kernel writes the output itself
     "reduced engine B=4": (4, 4, 2, 16, 16, 33, 8, [1, 17, 100, 128]),
     "llama2 B=8": (8, 32, 32, 128, 32, 257, 32, MAIN_LENGTHS),
+    # llama2-13b's serve engine: 40 heads, one a KV head, D 128
+    "llama2-13b B=8": (8, 40, 40, 128, 32, 257, 32, MAIN_LENGTHS),
     "g12 B=8": (8, 48, 4, 128, 32, 257, 32, MAIN_LENGTHS),
     "page128 B=8": (8, 32, 8, 64, 128, 65, 8, MAIN_LENGTHS),
     # the serve phase's decode contexts: prompts of 20-70 tokens with
@@ -334,7 +352,8 @@ def paged_phase():
     tables, the reduced heads (also at the small phase's own engine, whose
     one split has no combine), the serve's own contexts, and the widths the
     kernel covers beyond granite: D 128 with one query head per KV head
-    (Llama 2) and with groups of 12, and 128-token pages."""
+    (Llama 2, at llama2-7b's and llama2-13b's head counts) and with groups
+    of 12, and 128-token pages."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import _n_sm, paged_attention, split_plan
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -378,8 +397,11 @@ def paged_phase():
 
 def rmsnorm_phase():
     """Fused RMSNorm: decode (N 8), chunk-pass (N 48) and prefill (N 2048)
-    rows at granite's d 2048, a ragged N, the reduced d 64; bf16 and f32
-    (the chunk rows bf16 only); with and without the residual."""
+    rows at granite's d 2048, a ragged N, the reduced d 64; decode and
+    prefill rows at llama2-13b's d 5120 (f32 there takes two vectors a
+    thread) and llama2-7b's d 4096, and a decode row at minicpm-2b's d
+    2304; bf16 and f32 (some rows bf16 only); with and without the
+    residual."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import fused_rmsnorm, launch_shape
@@ -390,7 +412,12 @@ def rmsnorm_phase():
                               ("chunk N=48", 48, 2048, both[:1]),
                               ("prefill N=2048", 2048, 2048, both),
                               ("ragged N=1000", 1000, 2048, both),
-                              ("reduced N=8", 8, 64, both)):
+                              ("reduced N=8", 8, 64, both),
+                              ("llama2-13b decode N=8", 8, 5120, both),
+                              ("llama2-13b prefill N=2048", 2048, 5120, both),
+                              ("llama2-7b decode N=8", 8, 4096, both[:1]),
+                              ("llama2-7b prefill N=2048", 2048, 4096, both[:1]),
+                              ("minicpm decode N=8", 8, 2304, both[:1])):
         for kind, dt in kinds:
             # input sets rotate past the 50 MB L2, so a timed call reads them
             # from HBM as the bound assumes (the smallest shapes stay cached)
@@ -438,7 +465,7 @@ def rmsnorm_phase():
                     bound_by="bytes", library_ms=library_ms)
                 lib = "none" if library_ms is None else f"{library_ms:.4f}"
                 blocks, threads = launch_shape(N, d, dt.itemsize)
-                print(f"kernel fused_rmsnorm {name:15s} d={d} {kind:4s} {tag:8s} "
+                print(f"kernel fused_rmsnorm {name:25s} d={d} {kind:4s} {tag:8s} "
                       f"launch={blocks}x{threads} "
                       f"err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} eager_ms={eager_ms:.4f} "
                       f"plain_ms={plain_ms:.4f} "
@@ -460,9 +487,11 @@ def attention_pairs(Tq, Tk, causal, window):
 
 
 def flash_phase():
-    """Flash-attention prefill at the main path's prefill group (B 8, T 128)
-    and a long prompt (B 1, T 1024) in bf16 and f32, a ragged T, a windowed
-    and a non-causal case, and the reduced heads. q/k/v are the (B, T, H, D)
+    """Flash-attention prefill at granite's prefill group (B 8, T 128) and a
+    long prompt (B 1, T 1024) in bf16 and f32, a ragged T, a windowed and a
+    non-causal case, and the reduced heads; at head_dim 128, llama2-13b's
+    and llama2-7b's prefill groups, a long prompt, a ragged T and a window,
+    in bf16 and f32. q/k/v are the (B, T, H, D)
     projections passed as (B, H, T, D) views, as ``gqa_full`` passes them."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -476,6 +505,11 @@ def flash_phase():
         ("window=64 T=200", 2, 32, 8, 200, 64, True, 64, ("bf16",)),
         ("noncausal T=200", 2, 32, 8, 200, 64, False, 0, ("bf16",)),
         ("reduced B=8 T=128", 8, 4, 2, 128, 16, True, 0, ("bf16", "f32")),
+        ("llama2-13b B=8 T=128", 8, 40, 40, 128, 128, True, 0, ("bf16", "f32")),
+        ("llama2-7b B=8 T=128", 8, 32, 32, 128, 128, True, 0, ("bf16", "f32")),
+        ("llama2 long B=1 T=1024", 1, 40, 40, 1024, 128, True, 0, ("bf16", "f32")),
+        ("llama2 ragged T=200", 2, 40, 40, 200, 128, True, 0, ("bf16", "f32")),
+        ("llama2 window=64 T=200", 2, 40, 40, 200, 128, True, 64, ("bf16", "f32")),
     ]
     rows = {}
     for name, B, H, KVH, T, D, causal, window, kinds in shapes:
@@ -536,7 +570,7 @@ def flash_phase():
             rows[(name, kind)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=library_ms)
-            print(f"kernel flash_attention {name:18s} B={B} H={H} KVH={KVH} T={T} D={D} "
+            print(f"kernel flash_attention {name:22s} B={B} H={H} KVH={KVH} T={T} D={D} "
                   f"causal={causal} window={window} {kind:4s} err={err:.3e} "
                   f"{crit} ms={ms:.4f} eager_ms={eager_ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
@@ -557,14 +591,15 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def small_phase():
-    """Reduced granite, fp32: card (kernel) and CPU (plain) engines agree,
-    whole-prompt and chunked, and chunked agrees with whole-prompt."""
+def small_phase(arch):
+    """A reduced config (vocab 512), fp32: card (kernel) and CPU (plain)
+    engines agree, whole-prompt and chunked, and chunked agrees with
+    whole-prompt."""
     from repro_torch.configs import reduced
     from repro_torch.models import model as MD
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.tokenizer import ByteTokenizer
-    cfg = reduced("granite_3_2b").replace(vocab_size=512)
+    cfg = reduced(arch).replace(vocab_size=512)
     cpu_params = MD.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     gpu_params = to_device(cpu_params, "cuda")
     tok = ByteTokenizer()
@@ -582,13 +617,13 @@ def small_phase():
                     eng.submit(tok.encode(p, bos=True), max_new_tokens=12 + 4 * i)
                 eng.run_to_completion()
                 check(chunk == 0 or eng.chunk_steps > 0,
-                      f"reduced kv_int8={kv_int8} {dev}: no chunk ran")
+                      f"reduced {arch} kv_int8={kv_int8} {dev}: no chunk ran")
                 streams[(chunk, dev)] = {f.rid: f.token_ids for f in eng.finished}
         whole = streams[(0, "cuda")]
-        check(len(whole) == 6, f"reduced kv_int8={kv_int8}: {len(whole)} of 6 finished")
+        check(len(whole) == 6, f"reduced {arch} kv_int8={kv_int8}: {len(whole)} of 6 finished")
         for chunk in (0, 8):
             check(streams[(chunk, "cpu")] == streams[(chunk, "cuda")],
-                  f"reduced kv_int8={kv_int8} chunk={chunk}: card and CPU token "
+                  f"reduced {arch} kv_int8={kv_int8} chunk={chunk}: card and CPU token "
                   "streams differ")
         # (rid, first differing token, length) of chunked against whole-prompt
         diff = [(rid, next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
@@ -602,9 +637,10 @@ def small_phase():
         # gqa_full; the CPU tests hold the port's logit gap between the two
         # to the reference's), so a greedy token near a tie may differ;
         # card == CPU above is the check that holds the kernels there
-        check(kv_int8 or not diff, f"reduced fp32: chunked differs from whole-prompt "
+        check(kv_int8 or not diff, f"reduced {arch} fp32: chunked differs from whole-prompt "
               f"as (rid, first differing token, length): {diff}")
-        print(f"small reduced-granite fp32 kv_int8={kv_int8}: card == CPU greedy tokens, "
+        print(f"small reduced {cfg.name} fp32 (tied embeddings {cfg.tie_embeddings}) "
+              f"kv_int8={kv_int8}: card == CPU greedy tokens, "
               f"whole-prompt and chunked (chunk 8), for {len(whole)} requests "
               f"({sum(map(len, whole.values()))} tokens); chunked against whole-prompt: "
               + (f"differs as (rid, first differing token, length) {diff}" if diff
@@ -819,14 +855,21 @@ def graph_against_eager(eng, label):
                         if not torch.equal(out_e[sl], out_g[sl])]
             # every page but the trash page (the last), which no table maps:
             # rows aimed there (dead lanes, pad rows, length-0 chunk passes)
-            # collide on its slots, and which of them lands is not ordered
+            # collide on its slots, and which of them lands is not ordered.
+            # Layer by layer: a whole leaf's byte mask, summed, would take
+            # eight bytes a byte of the store (27 GB for llama2-13b's K)
             page_diff, trash = [], 0
             for (name, x), xe in zip(leaves, pages_e):
-                differ = x.view(torch.uint8) != xe.view(torch.uint8)
-                trash += int(differ[:, -1].sum())
-                nbytes = int(differ[:, :-1].sum())
+                nbytes, err = 0, 0.0
+                for layer, layer_e in zip(x, xe):
+                    differ = layer.view(torch.uint8) != layer_e.view(torch.uint8)
+                    trash += int(differ[-1].sum())
+                    n = int(differ[:-1].sum())
+                    if n:
+                        nbytes += n
+                        err = max(err, (layer[:-1].float() - layer_e[:-1].float())
+                                  .abs().max().item())
                 if nbytes:
-                    err = (x[:, :-1].float() - xe[:, :-1].float()).abs().max().item()
                     page_diff.append(f"{name}: {nbytes} bytes differ, max abs {err:.3e}")
             seen.append((entry.name, k, out_diff, page_diff, trash, eager_ms, graph_ms))
             return out_g
@@ -1016,7 +1059,7 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
                           page_size=32, decode_block=8, kv_int8=kv_int8,
                           prefill_chunk=prefill_chunk, device="cuda")
-    label = (f"granite-3-2b bf16 kv_int8={kv_int8}"
+    label = (f"{cfg.name} bf16 kv_int8={kv_int8}"
              + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else ""))
 
     def drive():
@@ -1274,10 +1317,11 @@ def gateway_phase(cfg, params, kernels, plain_calls):
               f"({dec_tokens / steps:.2f} lanes live a step), {dec_s:.3f} s = "
               f"{dec_tokens / dec_s:.1f} tok/s, {1e3 * dec_s / steps:.2f} ms a step "
               f"(B's replayed dispatches; {smi})")
-    # the card's own ledger beside the reference's roofline, for granite on
-    # the H100: measured decode seconds against modeled ones
+    # the card's own ledger beside the reference's, for the served model on
+    # the H100 (its parameter count, its bf16 K and V bytes a token):
+    # measured decode seconds against the roofline's modeled ones
     profile = ModelProfile(
-        "granite-3-2b", float(MD.param_count(params)),
+        cfg.name, float(MD.param_count(params)),
         kv_bytes_per_token=cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2.0,
         d_model=cfg.d_model, n_layers=cfg.n_layers)
     tel = gw_b.stats.telemetry
@@ -1288,7 +1332,7 @@ def gateway_phase(cfg, params, kernels, plain_calls):
           f"{st.carbon_g:.6f} g over {st.requests} requests "
           f"({1e3 * st.carbon_per_request:.4f} mg/request), "
           f"{st.energy_kwh * 3.6e6 / sum(r.gen_tokens for r in tel):.4f} J/generated token")
-    print(f"gateway ledger, card ({H100_SXM_80GB.name}, granite-3-2b profile "
+    print(f"gateway ledger, card ({H100_SXM_80GB.name}, served {cfg.name} profile "
           f"{profile.n_params / 1e9:.3f} B params, {profile.kv_bytes_per_token:.0f} KV "
           f"B/token): modeled power x measured decode seconds {j_meas:.4f} J/generated token, "
           f"{mg_meas:.4f} mgCO2/request; roofline {j_model:.4f} J/generated token, "
@@ -1322,14 +1366,15 @@ def counted_entry_runs(replays):
         Entry.run = run
 
 
-def cli_phase(cfg, kernels, plain_calls):
+def cli_phase(kernels, plain_calls):
     """The port's serving entry point on the card: ``repro_torch.launch.serve``
     ``main(CLI_ARGV)``, what ``python -m repro_torch.launch.serve`` runs,
     driven in this process so that its launches are held. The counts are
     zeroed just before and read just after; they must equal the expected
     launches over its own engines' forward passes (max_len 96, built by the
     launcher) and the kernel nodes their replays ran, and no plain version
-    may run. Its lines must show every hour, 0 rejected, and a solved plan.
+    may run. Its lines must show every hour, 0 rejected, and a solved plan;
+    with no ``--arch`` it serves the default, the paper's llama2-13b.
     Returns each kernel's launches."""
     from repro_torch.launch import serve as cli
     for kern in kernels.values():
@@ -1359,6 +1404,9 @@ def cli_phase(cfg, kernels, plain_calls):
     solvers = sorted({p.solver for p in st.plans})
     check(set(solvers) - {"warmup"}, f"cli: no hour ran a solved plan: {solvers}")
     engines = [eng for pool in gw.pools for eng in pool.scheduler.engines]
+    cfg = engines[0].cfg
+    check(cfg.name == "llama2-13b" and all(eng.cfg == cfg for eng in engines),
+          f"cli: served {[eng.cfg.name for eng in engines]}, not the default llama2-13b")
     for i, eng in enumerate(engines):
         check_graph_nodes(eng, f"cli engine {i}")
     fwd = [(eng.prefill_groups, eng.steps, eng.chunk_passes) for eng in engines]
@@ -1370,7 +1418,8 @@ def cli_phase(cfg, kernels, plain_calls):
     check(ran == launches, f"cli: its {sum(replays.values())} replays ran kernels "
           f"{ran} by their graphs; counted {launches}")
     check(sum(plain.values()) == 0, f"cli: plain versions called: {plain}")
-    print(f"cli: `python -m repro_torch.launch.serve {' '.join(CLI_ARGV)}` in "
+    print(f"cli: `python -m repro_torch.launch.serve {' '.join(CLI_ARGV)}` served "
+          f"{cfg.name} (the default --arch) in "
           f"{wall:.1f} s (model init and captures included), 0 rejected; plans by "
           f"{solvers}; launches {launches} (= expected over its engines' (prefill "
           f"groups, decode steps, chunk passes) {fwd} = the kernel nodes of its "
@@ -1379,25 +1428,65 @@ def cli_phase(cfg, kernels, plain_calls):
     return launches
 
 
-def serve_phase():
+def free_device_memory():
+    """Drop what nothing references any more (an engine's entries hold
+    cycles) and hand the cached blocks back, so the next model has room."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_memory(label, t0):
+    """One line of a phase's peak device memory (since the last reset) and
+    wall seconds; resets the peak for the next phase."""
+    torch.cuda.synchronize()
+    print(f"memory {label}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.memory_allocated() / 2**30:.2f} GiB still held; "
+          f"{time.monotonic() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def build_model(arch):
+    """Full-width ``arch`` in bf16 on the card, random weights from seed 0,
+    checked by one forward pass: finite logits of shape (1, 16, vocab)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
     from repro_torch.models import model as MD
-    cfg = get_config("granite_3_2b")
+    cfg = get_config(arch)
     t0 = time.monotonic()
     params = MD.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                            device="cuda")
     torch.cuda.synchronize()
-    print(f"serve granite-3-2b: {MD.param_count(params) / 1e9:.3f} B params, "
-          f"{MD.param_bytes(params) / 2**30:.2f} GiB weights in {cfg.dtype} "
-          f"(init {time.monotonic() - t0:.1f} s)")
-    # full-width forward: finite logits of the expected shape
+    init_s = time.monotonic() - t0
     toks = torch.arange(1, 17, device="cuda")[None]
     logits = MD.forward(cfg, params, toks, mode="prefill")
-    check(tuple(logits.shape) == (1, 16, cfg.vocab_size), f"logits {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    with kept_graphs():
-        profile_prefill(cfg, params)
+    check(tuple(logits.shape) == (1, 16, cfg.vocab_size),
+          f"{cfg.name}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite prefill logits")
+    print(f"serve {cfg.name}: {MD.param_count(params) / 1e9:.3f} B params, "
+          f"{MD.param_bytes(params) / 2**30:.2f} GiB weights in {cfg.dtype} "
+          f"(init {init_s:.1f} s; tied embeddings {cfg.tie_embeddings}); full-width "
+          f"forward: finite logits {tuple(logits.shape)}")
+    return cfg, params
+
+
+# the serve phase's models, one at a time: the paper's model first, with
+# every run (three serve runs, the gateway; a prefill-group profile), then
+# one bf16 serve run each of the others. granite is the one config with
+# GQA groups of 4
+SERVE_MODELS = (
+    ("llama2_13b", ((False, 0), (True, 0), (False, 48)), True),
+    ("llama2_7b", ((False, 0),), False),
+    ("minicpm_2b", ((False, 0),), False),
+    ("granite_3_2b", ((False, 0),), False),
+)
+
+
+def serve_phase():
+    """Each model of ``SERVE_MODELS`` at full width, its weights freed
+    before the next is drawn; then the CLI phase, which draws its own
+    llama2-13b. Returns each kernel's launches over every measured drive
+    (each counted from 0 and checked on its own)."""
+    from repro_torch.kernels import ref
     kernels = wrappers()
     # count calls of the plain versions: the main path must never take them
     plain_calls = {}
@@ -1414,14 +1503,29 @@ def serve_phase():
     totals = dict.fromkeys(kernels, 0)
     try:
         with kept_graphs():
-            for kv_int8, chunk in ((False, 0), (True, 0), (False, 48)):
-                for name, n in serve(cfg, params, kv_int8, chunk, kernels,
-                                     plain_calls).items():
-                    totals[name] += n
-            for name, n in gateway_phase(cfg, params, kernels, plain_calls).items():
+            for arch, runs, main_path in SERVE_MODELS:
+                t0 = time.monotonic()
+                torch.cuda.reset_peak_memory_stats()
+                cfg, params = build_model(arch)
+                if main_path:
+                    profile_prefill(cfg, params)
+                    free_device_memory()
+                for kv_int8, chunk in runs:
+                    for name, n in serve(cfg, params, kv_int8, chunk, kernels,
+                                         plain_calls).items():
+                        totals[name] += n
+                    free_device_memory()    # the run's engine and its graphs
+                if main_path:
+                    for name, n in gateway_phase(cfg, params, kernels,
+                                                 plain_calls).items():
+                        totals[name] += n
+                del params
+                free_device_memory()
+                phase_memory(f"serve {cfg.name}", t0)
+            t0 = time.monotonic()
+            for name, n in cli_phase(kernels, plain_calls).items():
                 totals[name] += n
-            for name, n in cli_phase(cfg, kernels, plain_calls).items():
-                totals[name] += n
+            phase_memory("cli", t0)
     finally:
         for name, fn in originals.items():
             setattr(ref, f"{name}_ref", fn)
@@ -1456,6 +1560,11 @@ def main():
         kinds = sorted({ln.split("<")[0] for ln in paged})
         print(f"build: paged kernels {kinds}: {len(paged)} instantiations, "
               f"{len(spilled)} with spills {spilled}")
+        # the flash instantiations at head_dim 128 (Llama 2): registers and
+        # spills of each, the two kernels whose tiles were cut for them
+        for ln in report:
+            if "flash_attention" in ln.split(":")[0] and "<128>" in ln.split(":")[0]:
+                print(f"build: flash D 128 {ln}")
     hmma = sass_hmma_counts(build.library_path())
     if hmma is None:
         print("build: SASS HMMA count of the bf16 flash kernels: not available "
@@ -1467,30 +1576,17 @@ def main():
               f"bf16 flash kernels without HMMA in their SASS: {flash}")
         for fn, n in zip(demangle(list(flash)), flash.values()):
             print(f"build: SASS HMMA count {n} in {fn}")
+    t0 = time.monotonic()
     paged_rows = paged_phase()
     rms_rows = rmsnorm_phase()
     flash_rows = flash_phase()
-    small_phase()
+    phase_memory("kernel", t0)
+    t0 = time.monotonic()
+    small_phase("llama2_13b")
+    small_phase("granite_3_2b")
+    phase_memory("small", t0)
     launches = serve_phase()
-    mains = {   # each kernel at the shape its main-path calls take
-        "paged_attention": (paged_rows[("main B=8", "bf16")], "paged_attention.py:78"),
-        "fused_rmsnorm": (rms_rows[("decode N=8", "bf16", "residual")], "rmsnorm.py:30"),
-        "flash_attention": (flash_rows[("main B=8 T=128", "bf16")], "flash_attention.py:85"),
-    }
-    kernels = []
-    for name, (row, tpu) in mains.items():
-        csrc = "rmsnorm" if name == "fused_rmsnorm" else name
-        kernels.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{csrc}.cu",
-            replaces=f"src/repro/kernels/{tpu}", launches=launches[name],
-            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row.get("library_ms")))
-        if name == "fused_rmsnorm":
-            # 41 of the 81 norms of a forward pass (each layer's ln1 and the
-            # final norm) take no residual: F.rms_norm computes those
-            kernels[-1]["library_ms_no_residual"] = rms_rows[
-                ("decode N=8", "bf16", "plain")]["library_ms"]
+    kernels = kernel_line(paged_rows, rms_rows, flash_rows, launches)
     print(f"total {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1498,6 +1594,39 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_line(paged_rows, rms_rows, flash_rows, launches):
+    """The ``kernels`` JSON line: each kernel at the shape its main-path
+    calls take, llama2-13b's (the CLI's default, the paper's model), with
+    granite's beside it, and its launches over the measured drives."""
+    mains = {
+        "paged_attention": ("paged_attention.py:78", paged_rows,
+                            ("llama2-13b B=8", "bf16"), ("main B=8", "bf16")),
+        "fused_rmsnorm": ("rmsnorm.py:30", rms_rows,
+                          ("llama2-13b decode N=8", "bf16", "residual"),
+                          ("decode N=8", "bf16", "residual")),
+        "flash_attention": ("flash_attention.py:85", flash_rows,
+                            ("llama2-13b B=8 T=128", "bf16"), ("main B=8 T=128", "bf16")),
+    }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for name, (tpu, rows, main_key, granite_key) in mains.items():
+        csrc = "rmsnorm" if name == "fused_rmsnorm" else name
+        row, granite = rows[main_key], rows[granite_key]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{csrc}.cu",
+            replaces=f"src/repro/kernels/{tpu}", launches=launches[name],
+            **{k: row.get(k) for k in keys}, shape=main_key[0],
+            granite_3_2b=dict(shape=granite_key[0], **{k: granite.get(k) for k in keys})))
+        if name == "fused_rmsnorm":
+            # 41 of the 81 norms of a forward pass (each layer's ln1 and the
+            # final norm) take no residual: F.rms_norm computes those
+            kernels[-1]["library_ms_no_residual"] = rms_rows[
+                main_key[:2] + ("plain",)]["library_ms"]
+            kernels[-1]["granite_3_2b"]["library_ms_no_residual"] = rms_rows[
+                granite_key[:2] + ("plain",)]["library_ms"]
+    return kernels
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@ from repro_torch.models.common import ModelConfig
 
 ARCH_IDS: List[str] = [
     "granite_3_2b",
+    "llama2_7b",
+    "llama2_13b",
+    "minicpm_2b",
 ]
 
 

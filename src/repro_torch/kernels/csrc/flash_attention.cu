@@ -17,8 +17,8 @@
 // with nothing unmasked yet never computes -inf - -inf, the correction
 // exp(m_old - m_safe) is 0 until the row has seen an unmasked key, and a
 // row with no unmasked key at all writes 0. Each block owns a 64-row q tile
-// and loops over 64-key K/V tiles itself (the TPU grid's sequential key
-// axis); the loop runs only over tiles that hold an unmasked key for some
+// and loops over K/V tiles of 64 keys (32 at D 128, see `Tile`) itself
+// (the TPU grid's sequential key axis); the loop runs only over tiles that hold an unmasked key for some
 // row of the q tile: it ends at min(Tk, q_end) when causal and starts at
 // the window's first tile, which is how Hopper gets the Pallas kernel's
 // `pl.when` tile skip. Ragged Tq and Tk are masked inside the block.
@@ -32,9 +32,9 @@
 //    four warps owns 16 query rows. Q's A-fragments are read once from
 //    global memory as bf16 pairs and stay in registers. The q tiles run
 //    last first: causal, they walk the most key tiles.
-//  * K and V tiles of 64 keys stream into shared memory with 16-byte
-//    `cp.async` copies, double-buffered, so tile i + 1 lands while tile i
-//    is used. They stay bf16; each row is padded by 16 bytes, so the eight
+//  * K and V tiles of 64 keys (32 at D 128) stream into shared memory with
+//    16-byte `cp.async` copies, double-buffered, so tile i + 1 lands while
+//    tile i is used. They stay bf16; each row is padded by 16 bytes, so the eight
 //    rows one `ldmatrix` phase reads fall in eight different bank groups
 //    (an unpadded 128-byte row stride conflicts 8 ways). Rows past Tk are
 //    zero-filled by the copy (src-size 0) and masked.
@@ -56,8 +56,12 @@
 //    holds both on the CPU). The score product's C-fragment layout is the
 //    A-fragment layout of the next product, so P never leaves registers;
 //    V's B-fragments come from `ldmatrix.trans`.
-//  * At most 128 registers a thread, so four blocks share an SM and a
-//    prefill group's 512 blocks (B 8, H 32, T 128) run in one wave.
+//  * At D 16 and 64 at most 128 registers a thread, so four blocks share an
+//    SM and a prefill group's 512 blocks (B 8, H 32, T 128) run in one
+//    wave. At D 128 a warp's 16 x 128 fp32 output accumulator alone takes
+//    64 registers a thread and Q's fragments 32 more, so the bound is two
+//    blocks an SM (255 registers); ptxas's report in chip_smoke.py's build
+//    phase shows what each instantiation uses and whether it spills.
 //  The unrolled tile body has no branch but the mask's: branches there cut
 //  it into blocks the compiler schedules one by one, which cost more than
 //  the masked work they skipped. The bf16 work is 1.5x the bound's (the
@@ -78,7 +82,19 @@
 namespace {
 
 constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // keys per shared-memory tile
+
+// `key_tile`: keys per shared-memory tile, 64, or 32 at D 128. A 64-key K/V
+// ring at D 128 (69,632 bytes in bf16, 67,584 in f32) would pass the 48 KB
+// a block may take statically; 32 keys keep it at 34,816 and 33,792 bytes, with no
+// dynamic shared memory and so no attribute to set before the first launch
+// (which may come inside a CUDA graph capture), and halve the S tile's
+// registers beside the 64-register output accumulator. `min_blocks`: the
+// bf16 kernel's blocks an SM, so 128 registers a thread, or 255 at D 128.
+template <int D>
+struct Tile {
+  static constexpr int key_tile = D <= 64 ? 64 : 32;
+  static constexpr int min_blocks = D <= 64 ? 4 : 2;
+};
 constexpr float kNegInf = -1e30f;       // the Pallas kernel's NEG_INF
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -98,12 +114,13 @@ struct Args {
 // ----------------------------------------------------------------------
 
 constexpr int kF32Threads = 2 * kBQ;    // two threads per query row
-constexpr int kKeysPerThread = kBK / 2;
 
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, Args a) {
+  constexpr int kBK = Tile<D>::key_tile;
+  constexpr int kKeysPerThread = kBK / 2;
   constexpr int kHalfD = D / 2;
   constexpr int kStride = D + 4;
   __shared__ __align__(16) float k_s[kBK][kStride];
@@ -195,7 +212,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     l = l * corr + sum;
 #pragma unroll
     for (int d = 0; d < kHalfD; ++d) acc[d] *= corr;
-    // P·V over all 64 keys: this thread's probabilities and its partner's
+    // P·V over the tile's keys: this thread's probabilities and its partner's
 #pragma unroll
     for (int j = 0; j < kKeysPerThread; ++j) {
       const float p_mine = s[j];
@@ -231,7 +248,6 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 
 constexpr int kWarps = kBQ / 16;        // each warp owns 16 query rows
 constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kMmaMinBlocks = 4;       // blocks an SM holds: 128 registers a thread
 constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
@@ -294,16 +310,18 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, unsigned& hi, uns
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
+__global__ void __launch_bounds__(kMmaThreads, Tile<D>::min_blocks)
 flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out, Args a) {
+  constexpr int kBK = Tile<D>::key_tile;
   constexpr int kStride = D + 8;        // padded row, in elements: 16 bytes more
   constexpr int kChunks = D / 8;        // 16-byte pieces of a row
   constexpr int kCopies = kBK * kChunks / kMmaThreads;  // per thread per tile
   constexpr int kKD = D / 16;           // k-steps of Q·Kᵀ
   constexpr int kNK = kBK / 8;          // 8-key column blocks of S
   constexpr int kND = D / 8;            // 8-column blocks of the output
-  static_assert(kCopies >= 1 && D % 16 == 0, "tile shape");
+  static_assert(kCopies >= 1 && kBK * kChunks % kMmaThreads == 0 && D % 16 == 0,
+                "tile shape");
   __shared__ __align__(16) bf16 k_s[2][kBK * kStride];
   __shared__ __align__(16) bf16 v_s[2][kBK * kStride];
 
@@ -323,7 +341,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const bf16* kb = k + b * a.ksb + kvh * a.ksh;
   const bf16* vb = v + b * a.vsb + kvh * a.vsh;
 
-  // rows [r0, r0 + 64) of one (T, D) slab into a padded shared tile
+  // rows [r0, r0 + kBK) of one (T, D) slab into a padded shared tile
   auto load_tile = [&](bf16* dst, const bf16* src, long long st, int r0, int rows) {
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
@@ -549,6 +567,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   switch (D) {
     case 16: return static_cast<int>(launch<16>(dtype, q, k, v, out, B, a, s));
     case 64: return static_cast<int>(launch<64>(dtype, q, k, v, out, B, a, s));
+    case 128: return static_cast<int>(launch<128>(dtype, q, k, v, out, B, a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,8 +24,11 @@
 //
 // Design. One block per row, one 16-byte vector of the row per thread
 // (d * sizeof(T) / 16 threads rounded up to whole warps: 256 for d 2048
-// bf16), so N rows run as N blocks and every element is read once and
-// written once. Each thread issues all its loads (x, the residual and the
+// bf16, 640 for d 5120 bf16), so N rows run as N blocks and every element
+// is read once and written once. A row of more than 1024 vectors (f32
+// above d 4096, up to d 8192) takes two vectors a thread, j and
+// j + blockDim.x, so neighbouring threads still read neighbouring
+// addresses. Each thread issues all its loads (x, the residual and the
 // matching scale vectors) before any arithmetic: one dependent memory
 // round trip per launch, none after the reduction. The sum of squares is a
 // warp-shuffle reduction, then one exchange through shared memory between
@@ -40,8 +43,9 @@
 
 namespace {
 
-constexpr int kMaxD = 2048;
+constexpr int kMaxD = 8192;
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxVecs = 2;      // 16-byte vectors of the row a thread
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -57,7 +61,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, int kVecs>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
                const float* __restrict__ scale, T* __restrict__ y, T* __restrict__ r_out,
@@ -65,34 +69,45 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
   constexpr int kVec = 16 / sizeof(T);   // elements per 16-byte vector
   constexpr int kScaleVecs = kVec / 4;   // float4 scale vectors per vector
   __shared__ float part[kMaxThreads / 32];
-  const int j = threadIdx.x;             // this thread's vector of the row
-  const bool live = j < d / kVec;        // the last warp may overhang the row
   const size_t base = static_cast<size_t>(blockIdx.x) * d;
 
-  // every load first: x, residual, scale
-  uint4 xs = make_uint4(0, 0, 0, 0);
-  uint4 rs = make_uint4(0, 0, 0, 0);
-  float4 sc[kScaleVecs];
-  if (live) {
-    xs = reinterpret_cast<const uint4*>(x + base)[j];
-    if (res != nullptr) rs = reinterpret_cast<const uint4*>(res + base)[j];
+  // every load first: x, residual, scale; vector j + v·blockDim.x of the
+  // row is this thread's v-th (the last warp may overhang the row)
+  uint4 xs[kVecs];
+  uint4 rs[kVecs];
+  float4 sc[kVecs][kScaleVecs];
+  bool live[kVecs];
 #pragma unroll
-    for (int c = 0; c < kScaleVecs; ++c) {
-      sc[c] = reinterpret_cast<const float4*>(scale)[j * kScaleVecs + c];
+  for (int v = 0; v < kVecs; ++v) {
+    const int j = threadIdx.x + v * blockDim.x;
+    live[v] = j < d / kVec;
+    xs[v] = make_uint4(0, 0, 0, 0);
+    rs[v] = make_uint4(0, 0, 0, 0);
+    if (live[v]) {
+      xs[v] = reinterpret_cast<const uint4*>(x + base)[j];
+      if (res != nullptr) rs[v] = reinterpret_cast<const uint4*>(res + base)[j];
+#pragma unroll
+      for (int c = 0; c < kScaleVecs; ++c) {
+        sc[v][c] = reinterpret_cast<const float4*>(scale)[j * kScaleVecs + c];
+      }
     }
   }
 
   // r = x + residual rounded to T (written out), and the sum of squares of r
-  T* xe = reinterpret_cast<T*>(&xs);
-  if (live && res != nullptr) {
-    const T* re = reinterpret_cast<const T*>(&rs);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) xe[e] = from_float<T>(to_float(xe[e]) + to_float(re[e]));
-    reinterpret_cast<uint4*>(r_out + base)[j] = xs;
-  }
   float ss = 0.f;
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) ss = fmaf(to_float(xe[e]), to_float(xe[e]), ss);
+  for (int v = 0; v < kVecs; ++v) {
+    const int j = threadIdx.x + v * blockDim.x;
+    T* xe = reinterpret_cast<T*>(&xs[v]);
+    if (live[v] && res != nullptr) {
+      const T* re = reinterpret_cast<const T*>(&rs[v]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) xe[e] = from_float<T>(to_float(xe[e]) + to_float(re[e]));
+      reinterpret_cast<uint4*>(r_out + base)[j] = xs[v];
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) ss = fmaf(to_float(xe[e]), to_float(xe[e]), ss);
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
   if (blockDim.x > 32) {  // the row spans several warps
@@ -103,13 +118,17 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
   const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
 
-  if (live) {
-    const float* se = reinterpret_cast<const float*>(&sc[0]);
-    uint4 o;
-    T* oe = reinterpret_cast<T*>(&o);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) oe[e] = from_float<T>(to_float(xe[e]) * inv * se[e]);
-    reinterpret_cast<uint4*>(y + base)[j] = o;
+  for (int v = 0; v < kVecs; ++v) {
+    if (live[v]) {
+      const T* xe = reinterpret_cast<const T*>(&xs[v]);
+      const float* se = reinterpret_cast<const float*>(&sc[v][0]);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) oe[e] = from_float<T>(to_float(xe[e]) * inv * se[e]);
+      reinterpret_cast<uint4*>(y + base)[threadIdx.x + v * blockDim.x] = o;
+    }
   }
 }
 
@@ -117,13 +136,23 @@ template <typename T>
 cudaError_t launch(const void* x, const void* res, const float* scale, void* y, void* r_out,
                    int N, int d, float eps, int threads, cudaStream_t stream) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  // whole warps, one vector a thread, covering the row
-  if (d % kVec != 0 || threads % 32 != 0 || threads > kMaxThreads || threads * kVec < d) {
+  if (d % kVec != 0 || threads % 32 != 0 || threads <= 0 || threads > kMaxThreads) {
     return cudaErrorInvalidValue;
   }
-  rmsnorm_kernel<T><<<N, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), scale, static_cast<T*>(y),
-      static_cast<T*>(r_out), d, eps);
+  // whole warps covering the row with one or two vectors a thread
+  const int nvec = d / kVec;
+  const int vecs = (nvec + threads - 1) / threads;
+  if (vecs == 1) {
+    rmsnorm_kernel<T, 1><<<N, threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(res), scale, static_cast<T*>(y),
+        static_cast<T*>(r_out), d, eps);
+  } else if (vecs == kMaxVecs) {
+    rmsnorm_kernel<T, kMaxVecs><<<N, threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(res), scale, static_cast<T*>(y),
+        static_cast<T*>(r_out), d, eps);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -135,8 +164,8 @@ cudaError_t launch(const void* x, const void* res, const float* scale, void* y, 
 // not take). `residual` and `r_out` are both null (plain RMSNorm) or both
 // set. x, residual, scale, y and r_out must be 16-byte aligned and
 // row-contiguous. `threads` is the block size the wrapper chose
-// (kernels/rmsnorm.py `launch_shape`): whole warps, one 16-byte vector of
-// the row each.
+// (kernels/rmsnorm.py `launch_shape`): whole warps, one or two 16-byte
+// vectors of the row each.
 extern "C" int fused_rmsnorm_fwd(const void* x, const void* residual, const void* scale,
                                  void* y, void* r_out, int N, int d, float eps, int dtype,
                                  int threads, void* stream) {

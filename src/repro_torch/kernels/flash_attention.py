@@ -19,7 +19,7 @@ from repro_torch.kernels.checks import (check_cp_async_rows, check_launch,
                                         check_one_device, check_tensor)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64)  # the reduced config's and granite's
+HEAD_DIMS = (16, 64, 128)  # reduced granite and Llama 2; granite, minicpm; Llama 2
 _check = functools.partial(check_tensor, "flash_attention", contiguous=False)
 
 

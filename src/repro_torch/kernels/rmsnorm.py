@@ -16,7 +16,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.checks import check_launch, check_one_device, check_tensor
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 2048
+MAX_D = 8192          # two 16-byte vectors a thread in f32 (Llama 2 needs 5120)
+MAX_THREADS = 1024
 _check = functools.partial(check_tensor, "fused_rmsnorm")
 
 
@@ -24,14 +25,16 @@ def launch_shape(N: int, d: int, itemsize: int):
     """The kernel's launch shape for N rows of d elements of ``itemsize``
     bytes: (blocks, threads per block). One block per row, one 16-byte
     vector of the row per thread, in whole warps, so every load of a row is
-    in flight at once and N rows run as N blocks."""
+    in flight at once and N rows run as N blocks; a row of more than 1024
+    vectors (f32 above d 4096) takes two vectors a thread."""
     nvec = d * itemsize // 16
-    return N, -(-nvec // 32) * 32
+    per = -(-nvec // MAX_THREADS)        # vectors a thread
+    return N, -(-nvec // (32 * per)) * 32
 
 
 def fused_rmsnorm(x, scale, residual=None, *, eps: float = 1e-6):
     """x (N, d) f32/bf16, contiguous and 16-byte aligned, with d a multiple
-    of 16 bytes and at most 2048; scale (d,) f32, 16-byte aligned; residual
+    of 16 bytes and at most ``MAX_D``; scale (d,) f32, 16-byte aligned; residual
     optional (N, d) like x. Returns (y, r): r = x + residual rounded to x's
     dtype (x itself without a residual), y = rmsnorm(r) * scale in x's
     dtype."""

@@ -1,7 +1,7 @@
 """Shared layers: norm, gated MLP, embeddings, RoPE (counterpart of
-``repro/models/layers.py``): the variants granite uses (RMSNorm, bias-free
-SwiGLU, tied embeddings, half-split RoPE); ``model._check_supported``
-rejects configs that need others. Every norm runs through
+``repro/models/layers.py``): the variants the port's dense decoders use
+(RMSNorm, bias-free SwiGLU, tied or untied embeddings, half-split RoPE);
+``model._check_supported`` rejects configs that need others. Every norm runs through
 ``kernels.ops.fused_rmsnorm`` (the CUDA kernel on the card, its plain
 version on the CPU)."""
 from __future__ import annotations
@@ -40,8 +40,11 @@ def embed_tokens(cfg: ModelConfig, p, tokens):
 
 
 def unembed(cfg: ModelConfig, p, x):
-    """Tied unembedding: x @ tok.T (``layers.py:114-122``)."""
-    return x @ p["tok"].T
+    """Logits: x @ tok.T when the embeddings are tied, else x @ unembed,
+    a (d, V) leaf (``layers.py:114-122``)."""
+    if cfg.tie_embeddings:
+        return x @ p["tok"].T
+    return x @ p["unembed"]
 
 
 def apply_rope(cfg: ModelConfig, x, positions):

@@ -6,7 +6,8 @@ JAX tree converts leaf for leaf (``params_from_jax``): per-segment stacked
 leaves ``params["segs"][i]`` shaped (n_layers, ...), and layer ``l`` of a
 segment is the view ``leaf[l]``. Each dense layer runs
 RMSNorm -> QKV + RoPE -> attention -> wo + residual -> RMSNorm -> SwiGLU +
-residual; then the final norm and the tied unembedding. Every norm goes
+residual; then the final norm and the unembedding (tied to the token
+embedding, or its own (d, V) leaf ``embed.unembed``). Every norm goes
 through the fused RMSNorm op (``layers.add_norm``), which also adds the
 attention residual in the same pass: 2·n_layers + 1 norm launches per
 forward. A prompt chunk (``prefill_chunk_step``) runs the same block over
@@ -27,19 +28,21 @@ from repro_torch.models.layers import (add_norm, apply_mlp, apply_norm,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The port serves granite's architecture: a dense full-attention GQA
-    decoder with RoPE, RMSNorm, bias-free SwiGLU and tied embeddings.
-    Prefill attention always computes the reference's blocked arithmetic
-    (fp32 scores and P·V); at fp32 the reference's ``attn_impl="xla"``
-    computes the same, at lower precision it rounds the scores first."""
+    """The port serves dense full-attention GQA decoders (MHA included)
+    with RoPE, RMSNorm and bias-free SwiGLU, with tied or untied
+    embeddings: granite, Llama 2 and minicpm. Prefill attention always
+    computes the reference's blocked arithmetic (fp32 scores and P·V); at
+    fp32 the reference's ``attn_impl="xla"`` computes the same, at lower
+    precision it rounds the scores first."""
     if (cfg.family != "dense" or cfg.attn_type != "gqa"
             or cfg.sliding_window > 0 or cfg.pos != "rope"
             or cfg.norm != "rmsnorm" or cfg.act != "silu" or cfg.use_bias
-            or not cfg.tie_embeddings or cfg.logit_softcap > 0):
+            or cfg.logit_softcap > 0):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}/{cfg.attn_type}): the port serves "
-            "granite's dense GQA architecture only; other families are "
-            "ROADMAP.md, modules still to port: other families")
+            "dense full-attention GQA decoders with RoPE, RMSNorm and "
+            "bias-free SwiGLU only; other families are ROADMAP.md, modules "
+            "still to port: other families")
     if cfg.attn_impl == "xla" and cfg.dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: attn_impl='xla' at {cfg.dtype} rounds attention "
@@ -52,16 +55,24 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ======================================================================
 
 def _dense(gen, shape, fan_in, dtype, device, scale=None):
-    """Truncated-normal fan-in init (the reference's ``dense_init``)."""
+    """Truncated-normal fan-in init (the reference's ``dense_init``). A
+    stacked (n_layers, ...) leaf is drawn one layer at a time, so the fp32
+    draw beside the weights is one layer's (llama2-13b's whole ``w_up``
+    would be 11.3 GB in fp32)."""
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in (out if len(shape) == 3 else (out,)):
+        w = torch.empty(part.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        part.copy_(w.mul_(std))
+    return out
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     """Random weights in the reference's layout, drawn from ``generator``
-    (which must live on ``device``)."""
+    (which must live on ``device``); an untied config also draws
+    ``embed.unembed`` (d, V) with fan-in d, as the reference's
+    ``init_embeddings`` does."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
@@ -86,15 +97,17 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
                     "w_down": w((n, f, d), f, 1.0 / math.sqrt(f)),
                     "w_gate": w((n, d, f), d)},
         })
-    return {"embed": {"tok": w((V, d), V, 1.0 / math.sqrt(d))},
-            "segs": segs, "norm": {"scale": ones(d)}}
+    embed = {"tok": w((V, d), V, 1.0 / math.sqrt(d))}
+    if not cfg.tie_embeddings:
+        embed["unembed"] = w((d, V), d)
+    return {"embed": embed, "segs": segs, "norm": {"scale": ones(d)}}
 
 
 def params_from_jax(tree, device="cuda"):
     """Convert the reference's parameter tree (leaves as numpy arrays, e.g.
     ``np.asarray`` of ``repro.models.model.init_model`` output) into the
-    port's parameters: the same nested layout, leaf for leaf, stacked
-    per segment."""
+    port's parameters: the same nested layout, leaf for leaf (an untied
+    config's ``embed.unembed`` included), stacked per segment."""
     dev = resolve_device(device)
 
     def conv(x):

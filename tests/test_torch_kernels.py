@@ -23,6 +23,7 @@ from repro_torch.kernels.checks import check_cp_async_rows  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as cuda_paged  # noqa: E402
 from repro_torch.kernels.rmsnorm import fused_rmsnorm as cuda_rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm import MAX_D as RMSNORM_MAX_D  # noqa: E402
 from repro_torch.kernels.rmsnorm import launch_shape as rmsnorm_launch_shape  # noqa: E402
 from repro_torch.models.attention import dequantize_kv, quantize_kv  # noqa: E402
 
@@ -142,7 +143,9 @@ def _bf16(a):
     return t, jnp.asarray(t.float().numpy(), jnp.bfloat16)
 
 
-@pytest.mark.parametrize("N,d", [(8, 64), (256, 64), (512, 2048)])
+@pytest.mark.parametrize("N,d", [(8, 64), (256, 64), (512, 2048),
+                                 # minicpm-2b, llama2-7b, llama2-13b
+                                 (8, 2304), (8, 4096), (64, 5120)])
 @pytest.mark.parametrize("with_residual", [True, False])
 def test_rmsnorm_ref_matches_jax_oracle_and_pallas_f32(N, d, with_residual):
     """f32: the plain version equals the JAX oracle and the Pallas kernel
@@ -162,7 +165,8 @@ def test_rmsnorm_ref_matches_jax_oracle_and_pallas_f32(N, d, with_residual):
     np.testing.assert_array_equal(s.numpy(), np.asarray(ks))
 
 
-@pytest.mark.parametrize("N,d", [(8, 64), (256, 2048)])
+@pytest.mark.parametrize("N,d", [(8, 64), (256, 2048), (8, 2304), (64, 4096),
+                                 (64, 5120)])
 def test_rmsnorm_ref_bf16_rounds_like_the_reference_block(N, d):
     """bf16 with a residual: the plain version normalizes the ROUNDED sum,
     as the JAX oracle and the reference block do, so it equals the oracle
@@ -214,6 +218,11 @@ FLASH_BLOCK_CASES = [
     (2, 8, 2, 128, 16, True, 0, 64),        # GQA, causal
     (1, 4, 2, 128, 64, True, 48, 32),       # sliding window
     (1, 4, 2, 64, 16, False, 0, 32),        # non-causal
+    # head_dim 128 (Llama 2)
+    (1, 4, 4, 128, 128, True, 0, 64),       # MHA, causal
+    (2, 8, 2, 128, 128, True, 0, 64),       # GQA, causal
+    (1, 4, 4, 128, 128, True, 48, 32),      # MHA, sliding window
+    (1, 8, 2, 128, 128, True, 40, 32),      # GQA, sliding window
 ]
 
 
@@ -335,6 +344,15 @@ def test_flash_wrapper_checks_rows_for_16_byte_copies(kind):
     (2048, 2048, 2, (2048, 256)),
     (2048, 2048, 4, (2048, 512)),
     (1000, 2048, 2, (1000, 256)),
+    # minicpm-2b, llama2-7b and llama2-13b: f32 at d 5120 is 1280 vectors,
+    # two a thread
+    (8, 2304, 2, (8, 288)),
+    (8, 4096, 2, (8, 512)),
+    (8, 4096, 4, (8, 1024)),
+    (8, 5120, 2, (8, 640)),
+    (8, 5120, 4, (8, 640)),
+    (2048, 5120, 4, (2048, 640)),
+    (8, 8192, 4, (8, 1024)),
 ])
 def test_rmsnorm_launch_shape_follows_the_row_count(N, d, itemsize, shape):
     """(blocks, threads per block) the RMSNorm wrapper launches with."""
@@ -344,13 +362,17 @@ def test_rmsnorm_launch_shape_follows_the_row_count(N, d, itemsize, shape):
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_rmsnorm_launch_shape_is_one_the_kernel_takes(itemsize):
     """Every launch shape the wrapper picks, for any row count and any d up
-    to 2048 that is a multiple of 16 bytes, is one ``csrc/rmsnorm.cu``
-    accepts: one block per row, whole warps of at most 1024 threads, one
-    16-byte vector of the row a thread, covering the row with no idle warp."""
+    to ``MAX_D`` that is a multiple of 16 bytes, is one ``csrc/rmsnorm.cu``
+    accepts: one block per row, whole warps of at most 1024 threads that
+    cover the row with one 16-byte vector a thread, or two past 1024
+    vectors (f32 above d 4096), as the kernel derives them
+    (ceil(vectors / threads)), and no idle warp."""
     vec = 16 // itemsize
     for N in (1, 2, 8, 48, 64, 255, 256, 257, 512, 1000, 2048, 8191):
-        for d in range(vec, 2049, vec):
+        for d in range(vec, RMSNORM_MAX_D + 1, vec):
             blocks, threads = rmsnorm_launch_shape(N, d, itemsize)
-            assert blocks == N
-            assert threads % 32 == 0 and threads <= 1024
-            assert threads * vec >= d > (threads - 32) * vec, (N, d, threads)
+            nvec = d // vec
+            per = -(-nvec // threads)
+            assert blocks == N and threads % 32 == 0 and threads <= 1024
+            assert per == (1 if nvec <= 1024 else 2), (N, d, threads)
+            assert threads * per >= nvec > (threads - 32) * per, (N, d, threads)

@@ -61,12 +61,48 @@ def test_run_gateway_prints_the_reference_lines(weights, extra, capsys):
     (["--gateway", "--paged", "--tp-degree", "2"], "item 10"),
     (["--paged", "--prefix-cache"], "item 5"),
     (["--gateway"], "item 9"),
-    (["--paged", "--arch", "llama2_13b"], "item 3"),
+    (["--paged", "--arch", "command_r_plus_104b"], "item 11"),
     (["--paged", "--arch", "deepseek_v2_lite"], "item 11"),
-], ids=["chaos", "tp-degree", "prefix-cache", "dense", "llama2", "other"])
+    (["--paged", "--arch", "starcoder2_15b"], "item 9"),
+], ids=["chaos", "tp-degree", "prefix-cache", "dense", "layernorm", "other",
+        "windowed-dense"])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         serve.parse_args(["--device", "cpu"] + argv)
+
+
+def test_default_arch_is_the_papers_model():
+    """As in the reference's launcher, ``--arch`` defaults to llama2_13b."""
+    assert serve.parse_args(["--device", "cpu", "--paged"]).arch == "llama2_13b"
+
+
+def test_run_gateway_serves_the_default_arch_like_the_reference(capsys):
+    """With no ``--arch`` both packages serve reduced llama2-13b (vocab 512,
+    untied embeddings) on the same weights, and print the same lines."""
+    args = serve.parse_args(BASE)
+    jcfg = jreduced(args.arch).replace(vocab_size=512)
+    cfg = reduced(args.arch).replace(vocab_size=512)
+    assert cfg.name == "llama2-13b" and not cfg.tie_embeddings
+    jp = JMD.init_model(jcfg, jax.random.PRNGKey(0))
+    params = MD.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    assert "unembed" in params["embed"]
+    jserve.run_gateway(args, jcfg, jp)
+    want = capsys.readouterr().out.splitlines()
+    gw = serve.run_gateway(args, cfg, params)
+    got = capsys.readouterr().out.splitlines()
+    assert got == want
+    assert gw.stats.requests == 8 and gw.stats.rejected == 0
+
+
+@pytest.mark.parametrize("change", [
+    dict(logit_softcap=30.0), dict(norm="layernorm"), dict(use_bias=True),
+    dict(sliding_window=16)], ids=["softcap", "layernorm", "bias", "window"])
+def test_model_still_refuses_what_the_port_does_not_compute(change):
+    """Untied embeddings are served now; softcap, layernorm, biases and
+    sliding windows still raise, naming the ROADMAP item."""
+    cfg = reduced("llama2_13b").replace(vocab_size=512, **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        MD.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 def test_card_is_asked_for_and_never_replaced(monkeypatch):

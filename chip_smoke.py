@@ -28,7 +28,13 @@ Phases; any failure raises and the script exits non-zero:
                path) emits the same greedy tokens as on the CPU (plain
                path), whole-prompt and with chunked prefill (chunk 8), and
                chunked gives the same tokens as whole-prompt; for fp32 and
-               int8 KV.
+               int8 KV. Then the radix prefix cache: eight requests with
+               Sprout's directive system prompts at their head (and a
+               page-aligned prompt twice, the one copy-on-write), prefix
+               cache on and off, fp32 and int8 KV: card and CPU give the
+               same tokens and block tables, hits skip prefill, the ledger
+               is clean at drain, and in fp32 prefix-on gives prefix-off's
+               tokens.
   5. serve   - the main path: full-width llama2-13b, the paper's model, in
                bf16 (random weights from a seed; each model's weights are
                freed before the next is drawn) served through
@@ -63,14 +69,23 @@ Phases; any failure raises and the script exits non-zero:
                profiler's kernel events may fall short of them, never
                above) and the span of the one replay (CUDA events), which
                may not exceed the wall. Each model's peak device memory and
-               wall seconds are printed.
+               wall seconds are printed. llama2-13b also serves the same
+               traffic on a prefix-cache engine: a cold drive and a warm one
+               build the entries, a second warm drive is measured with the
+               table frozen (launches held as above), each drive's cached
+               prefill tokens, adopted pages, copies and evictions printed,
+               the ledger clean at drain, and the share of streams identical
+               to the bf16 run's printed beside the chunked run's (bf16: a
+               hit's suffix, like a chunk, is computed by the chunk pass,
+               not by flash, so a near-tie may part).
   6. graphs  - inside each run's profile, one block (a decode block; a mixed
                block in the chunked run) is run twice from one state: the
                entry's eager callable, then, with the page store and the
                static inputs restored, the graph's replay. Tokens, validity
                and live mask must be identical and the page store equal
                byte for byte outside the write-only trash page; the host
-               wall of each is printed.
+               wall of each is printed. The prefix-cache run does this for
+               the block that follows a copy-on-write.
   7. gateway - Sprout's control plane over llama2-13b's weights: SproutGateway
                with two regional pools (CA, TX; watchdog-wrapped June
                traces), one full-width engine each (8 slots, max_len 1024,
@@ -97,9 +112,10 @@ Phases; any failure raises and the script exits non-zero:
                repro_torch.launch.serve (what `python -m
                repro_torch.launch.serve --gateway --paged ...` runs), in this
                process: no --arch, so the default llama2-13b, drawn anew
-               after the serve phase's weights are freed; three hours of 12
-               requests over CA and TX at full width, one line an hour, 0
-               rejected, a solved plan in the last hour. Its launches are zeroed before and read after,
+               after the serve phase's weights are freed, with
+               --prefix-cache; three hours of 12 requests over CA and TX at
+               full width, one line an hour, 0 rejected, a solved plan in
+               the last hour, prefill served from cached pages. Its launches are zeroed before and read after,
                and held to its engines' forward passes and to the kernel
                nodes its replays ran; no plain version may run.
 The last lines are the nvidia-smi line, one JSON object describing every
@@ -645,6 +661,87 @@ def small_phase(arch):
               f"({sum(map(len, whole.values()))} tokens); chunked against whole-prompt: "
               + (f"differs as (rid, first differing token, length) {diff}" if diff
                  else "identical"))
+    small_prefix(cfg, cpu_params, gpu_params)
+
+
+def record_tables(eng):
+    """{rid: the request's block-table row at its finish}, filled as the
+    engine finishes requests."""
+    seen = {}
+    finish = eng._finish
+
+    def wrapped(slot):
+        seen[eng.slots[slot].rid] = eng.pages.block_table[slot].tolist()
+        finish(slot)
+
+    eng._finish = wrapped
+    return seen
+
+
+def directive_traffic(tok, n=8):
+    """Sprout's traffic for the prefix cache: ``n`` prompts rendered at
+    directive levels 2, 1, 2, 0, ... (the scheduler's rendering, so every
+    L2 and every L1 request starts with the same full pages), plus one
+    96-token, page-aligned prompt submitted second and again last, whose
+    repeat is a full hit and recomputes its last token: the one
+    copy-on-write. Returns [(ids, max_new_tokens)]."""
+    from repro_torch.core import DirectiveSet
+    directives = DirectiveSet()
+    reqs = [(tok.encode(directives.apply(p, (2, 1, 2, 0)[i % 4]), bos=True), 8 + 4 * (i % 4))
+            for i, p in enumerate(PROMPTS[:n])]
+    aligned = (tok.encode(directives.apply(PROMPTS[-1], 2), bos=True) * 2)[:96]
+    return reqs[:1] + [(aligned, 12)] + reqs[1:] + [(aligned, 12)]
+
+
+def small_prefix(cfg, cpu_params, gpu_params):
+    """The radix prefix cache on the reduced config: ``directive_traffic``
+    with the cache on and off, fp32 and int8 KV, on the card and the CPU.
+    Card and CPU give the same tokens and block tables; the cache skips
+    prefill, makes its one copy and drains clean; in fp32 prefix-on gives
+    prefix-off's tokens (at int8 a hit's suffix attends over quantized
+    K/V where whole-prompt prefill does not, as with chunked prefill)."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    traffic = directive_traffic(ByteTokenizer())
+    for kv_int8 in (False, True):
+        runs = {}
+        for prefix in (False, True):
+            for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
+                eng = InferenceEngine(cfg, params, n_slots=4, max_len=160, paged=True,
+                                      page_size=16, decode_block=4, kv_int8=kv_int8,
+                                      prefix_cache=prefix, device=dev)
+                tables = record_tables(eng)
+                for ids, n in traffic:
+                    eng.submit(ids, max_new_tokens=n)
+                eng.run_to_completion()
+                runs[(prefix, dev)] = (
+                    {f.rid: f.token_ids for f in eng.finished}, tables,
+                    {f.rid: f.cached_tokens for f in eng.finished},
+                    (eng.prefill_tokens_cached, eng.prefill_tokens_computed,
+                     eng.pages.pages_adopted, eng.pages.cow_copies),
+                    (eng._committed, eng.pages.pinned))
+        label = f"small prefix cache reduced {cfg.name} kv_int8={kv_int8}"
+        for prefix in (False, True):
+            check(runs[(prefix, "cuda")] == runs[(prefix, "cpu")],
+                  f"{label} prefix_cache={prefix}: card and CPU differ in tokens, block "
+                  "tables or cache counters")
+        streams, _, cached, (n_cached, n_computed, adopted, cows), ledger = runs[(True, "cuda")]
+        off = runs[(False, "cuda")]
+        check(len(streams) == len(traffic), f"{label}: {len(streams)} finished")
+        check(n_cached > 0 and adopted > 0 and cows == 1,
+              f"{label}: cached {n_cached} tokens, adopted {adopted} pages, {cows} copies")
+        check(n_cached + n_computed == off[3][1],
+              f"{label}: {n_cached} cached + {n_computed} computed prompt tokens != "
+              f"{off[3][1]} without the cache")
+        check(ledger == (0, 0), f"{label}: (committed, pinned) {ledger} at drain")
+        same = streams == off[0]
+        check(kv_int8 or same, f"{label}: fp32 prefix-on tokens differ from prefix-off")
+        print(f"{label}: card == CPU tokens, block tables and counters, cache on and off, "
+              f"for {len(streams)} requests; cached tokens per request "
+              f"{list(cached.values())}; prefill {n_cached} tokens cached, {n_computed} "
+              f"computed ({off[3][1]} without the cache); {adopted} pages adopted, "
+              f"{cows} copy-on-write; prefix-on against prefix-off: "
+              + ("identical" if same else "differs (int8 KV)"))
 
 
 @contextlib.contextmanager
@@ -1047,37 +1144,63 @@ def profile_prefill(cfg, params, B=8, T=128):
           f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
 
 
+def scheduler_drive(eng):
+    """One drive of the main path's traffic: the 12 prompts through
+    ``CarbonAwareScheduler`` on ``eng``, which renders each drawn directive
+    level as the system prompt and caps the budget (64/48/32). The mix is
+    uniform, as the serving launcher draws before the LP has level
+    profiles, from one seed, so every drive sees the same levels, budgets
+    and shapes. Returns the scheduler and the drive's wall seconds."""
+    from repro_torch.serving.scheduler import CarbonAwareScheduler, ServeRequest
+    rng = np.random.default_rng(0)
+    sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)))
+    for p in PROMPTS:
+        sched.submit(ServeRequest(0, p, max_new_tokens=64, max_new_by_level=(64, 48, 32)))
+    t0 = time.monotonic()
+    sched.run()
+    torch.cuda.synchronize()
+    return sched, time.monotonic() - t0
+
+
+def check_measured_drive(eng, sched, label, launches, replays, plain, fwd):
+    """The checks every measured serve drive passes: each request finished,
+    none rejected, every token in the vocabulary, all three levels drawn;
+    launches equal the forward passes ``fwd`` (prefill groups, decode
+    steps, chunk passes) imply and the kernel nodes the replays ran; no
+    plain version ran."""
+    cfg, fin = eng.cfg, sched.finished
+    check(not sched.rejected, f"{label}: rejected: {sched.rejected}")
+    check(len(fin) == len(PROMPTS), f"{label}: {len(fin)} of {len(PROMPTS)} finished")
+    check(all(0 <= t < cfg.vocab_size for f in fin for t in f.token_ids),
+          f"{label}: token outside the vocabulary")
+    check(all(f.gen_tokens >= 1 for f in fin), f"{label}: a request generated nothing")
+    levels = sorted({f.directive_level for f in fin})
+    check(levels == [0, 1, 2], f"{label}: directive levels {levels}")
+    want = expected_launches(cfg.n_layers, *fwd)
+    check(launches == want, f"{label}: launches {launches} != expected {want} from "
+          f"{fwd[0]} prefill groups, {fwd[1]} decode steps, {fwd[2]} chunk passes")
+    # what the card ran: each replay runs every kernel node of its graph
+    ran = graph_launches(replays)
+    check(ran == launches, f"{label}: the drive's {sum(replays.values())} replays ran "
+          f"kernels {ran} by their graphs; counted {launches}")
+    check(sum(plain.values()) == 0, f"{label}: plain versions called on the card: {plain}")
+
+
 def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     """One main-path run: 12 requests through the scheduler, driven once to
     build the entry table (every wrapper call of a capture runs here, and
     no plain version may) and again, with the table frozen, to measure.
     Returns the launches of each kernel in the measured drive, checked
     against the engine's forward passes and against the kernel nodes that
-    the drive's replays ran."""
+    the drive's replays ran, and the drive's token streams by rid."""
     from repro_torch.serving.engine import InferenceEngine
-    from repro_torch.serving.scheduler import CarbonAwareScheduler, ServeRequest
     eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
                           page_size=32, decode_block=8, kv_int8=kv_int8,
                           prefill_chunk=prefill_chunk, device="cuda")
     label = (f"{cfg.name} bf16 kv_int8={kv_int8}"
              + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else ""))
-
-    def drive():
-        # uniform directive mix, as the serving launcher draws before the
-        # LP has level profiles; the same seed, so both drives see the
-        # same levels, budgets and shapes
-        rng = np.random.default_rng(0)
-        sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)))
-        for p in PROMPTS:
-            sched.submit(ServeRequest(0, p, max_new_tokens=64,
-                                      max_new_by_level=(64, 48, 32)))
-        t0 = time.monotonic()
-        sched.run()
-        torch.cuda.synchronize()
-        return sched, time.monotonic() - t0
-
     plain_calls.clear()
-    _, warm_wall = drive()
+    _, warm_wall = scheduler_drive(eng)
     # the building drive is where Python runs through the wrappers (warm-up
     # and capture of every entry); a replay runs none
     check(not plain_calls, f"{label}: plain versions called while the entries were "
@@ -1094,7 +1217,7 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     plain_calls.clear()
     replays = {}
     with counted_replays(eng, replays):
-        sched, wall = drive()
+        sched, wall = scheduler_drive(eng)
     launches = {name: kern.launches for name, kern in kernels.items()}
     plain = dict(plain_calls)
     check(set(eng.entry_points) == names and eng.graphs.captures == captures,
@@ -1105,22 +1228,9 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     chunks = eng.chunk_steps - chunks0
     passes = eng.chunk_passes - passes0
     fin = sched.finished
-    check(not sched.rejected, f"{label}: rejected: {sched.rejected}")
-    check(len(fin) == len(PROMPTS), f"{label}: {len(fin)} of {len(PROMPTS)} finished")
-    check(all(0 <= t < cfg.vocab_size for f in fin for t in f.token_ids),
-          f"{label}: token outside the vocabulary")
-    check(all(f.gen_tokens >= 1 for f in fin), f"{label}: a request generated nothing")
-    levels = sorted({f.directive_level for f in fin})
-    check(levels == [0, 1, 2], f"{label}: directive levels {levels}")
     check(not prefill_chunk or chunks > 0, f"{label}: no prompt chunk ran")
-    want = expected_launches(cfg.n_layers, groups, steps, passes)
-    check(launches == want, f"{label}: launches {launches} != expected {want} from "
-          f"{groups} prefill groups, {steps} decode steps, {passes} chunk passes")
-    # what the card ran: each replay runs every kernel node of its graph
-    ran = graph_launches(replays)
-    check(ran == launches, f"{label}: the drive's {sum(replays.values())} replays ran "
-          f"kernels {ran} by their graphs; counted {launches}")
-    check(sum(plain.values()) == 0, f"{label}: plain versions called on the card: {plain}")
+    check_measured_drive(eng, sched, label, launches, replays, plain,
+                         (groups, steps, passes))
     # every dispatch of the frozen drive replayed a built entry, so each
     # reported its decode time (a dispatch that captures reports 0.0)
     decode_s = sum(f.decode_s for f in fin)
@@ -1145,7 +1255,129 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
     print(f"entries {label} after the profile: {len(eng.entry_points)} entries, "
           f"{eng.graphs.captures} captures in {eng.graphs.capture_ms:.0f} ms, graph pool "
           f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
+    return launches, {f.rid: f.token_ids for f in fin}
+
+
+def cache_counters(eng):
+    """The prefix cache's counters, cumulative over the engine's life."""
+    return {"prefill_tokens_cached": eng.prefill_tokens_cached,
+            "pages_adopted": eng.pages.pages_adopted,
+            "cow_copies": eng.pages.cow_copies,
+            "cache_evictions": eng.pages.cache_evictions}
+
+
+def first_differences(got, want):
+    """[(rid, first differing token)] of the streams in ``got`` that differ
+    from ``want``'s."""
+    return [(rid, next((i for i, (a, b) in enumerate(zip(g, want[rid])) if a != b),
+                       min(len(g), len(want[rid]))))
+            for rid, g in got.items() if g != want[rid]]
+
+
+def serve_prefix(cfg, params, kernels, plain_calls, off_streams, chunked_streams):
+    """The main path's traffic on a prefix-cache engine (bf16 KV). The
+    engine keeps its index across drives (released prompt pages stay
+    cached), so a warm drive hits where a cold one prefilled, and runs
+    mixed entries a cold drive may not build: a cold drive and a warm one
+    build the table, a second warm drive is measured with it frozen, its
+    launches held as in ``serve``. Each drive's cache counters are printed
+    and its ledger must be clean at drain; the measured drive must hit.
+    The share of streams identical to the prefix-off bf16 run
+    (``off_streams``) is printed, not gated: a hit computes its suffix in
+    the chunk pass over K/V that flash's prefill wrote, so a bf16 near-tie
+    may part; beside it the same share for the chunked run
+    (``chunked_streams``), which splits the same arithmetic. Then the block after a copy-on-write runs graph against
+    eager. Returns the measured drive's launches."""
+    from repro_torch.serving.engine import InferenceEngine
+    eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
+                          page_size=32, decode_block=8, prefix_cache=True,
+                          device="cuda")
+    label = f"{cfg.name} bf16 prefix_cache"
+
+    def cached_drive(name):
+        before = cache_counters(eng)
+        sched, wall = scheduler_drive(eng)
+        delta = {k: v - before[k] for k, v in cache_counters(eng).items()}
+        check(eng._committed == 0 and eng.pages.pinned == 0,
+              f"{label} drive {name}: committed {eng._committed}, pinned "
+              f"{eng.pages.pinned} at drain")
+        print(f"serve {label} drive {name}: {delta}; {eng.pages.cached_pages()} pages "
+              f"cached at drain; wall {wall:.3f} s")
+        return sched, wall, delta
+
+    plain_calls.clear()
+    cached_drive("A (cold, builds)")
+    cached_drive("B (warm, builds)")
+    check(not plain_calls, f"{label}: plain versions called while the entries were "
+          f"built: {plain_calls}")
+    names = set(eng.entry_points)
+    check_graph_nodes(eng, label)
+    captures = eng.graphs.captures
+    fwd0 = (eng.prefill_groups, eng.steps, eng.chunk_passes, eng.decode_tokens)
+    for kern in kernels.values():
+        kern.launches = 0
+    plain_calls.clear()
+    replays = {}
+    with counted_replays(eng, replays):
+        sched, wall, delta = cached_drive("C (warm, measured)")
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    plain = dict(plain_calls)
+    check(set(eng.entry_points) == names and eng.graphs.captures == captures,
+          f"{label}: entry table grew in the measured drive: "
+          f"{sorted(set(eng.entry_points) - names)}")
+    groups, steps, passes, tokens0 = (b - a for a, b in zip(fwd0, (
+        eng.prefill_groups, eng.steps, eng.chunk_passes, eng.decode_tokens)))
+    check_measured_drive(eng, sched, label, launches, replays, plain,
+                         (groups, steps, passes))
+    fin = sched.finished
+    hits = sum(f.cached_tokens > 0 for f in fin)
+    check(hits > 0 and delta["prefill_tokens_cached"] > 0,
+          f"{label}: the measured drive hit {hits} times ({delta})")
+    prompt_tokens = sum(f.prompt_tokens for f in fin)
+    parted = first_differences({f.rid: f.token_ids for f in fin}, off_streams)
+    parted_chunked = first_differences(chunked_streams, off_streams)
+    decode_s = sum(f.decode_s for f in fin)
+    print(f"serve {label}: {len(fin)} requests, levels {[f.directive_level for f in fin]}, "
+          f"cached tokens {[f.cached_tokens for f in fin]}: {hits} hits, prefill "
+          f"{delta['prefill_tokens_cached']} of {prompt_tokens} prompt tokens skipped; "
+          f"forward passes: {groups} prefill groups, {steps} decode steps, {passes} chunk "
+          f"passes; launches {launches} (= expected = the kernel nodes run by the drive's "
+          f"{sum(replays.values())} replays), plain calls {plain or 0}; decode tokens "
+          f"{tokens0} in {decode_s:.3f} s = {tokens0 / decode_s:.1f} tok/s (replayed "
+          f"dispatches only); wall {wall:.3f} s; streams identical to the prefix-off bf16 "
+          f"run: {len(fin) - len(parted)} of {len(fin)}, the others part at (rid, token) "
+          f"{parted} (not gated; the chunked run against the same: "
+          f"{len(chunked_streams) - len(parted_chunked)} of {len(chunked_streams)}, "
+          f"parting at {parted_chunked}); entries {len(names)}, {captures} "
+          f"captures in {eng.graphs.capture_ms:.0f} ms ({nvidia_smi()})")
+    cow_against_eager(eng, label)
     return launches
+
+
+def cow_against_eager(eng, label):
+    """A 64-token prompt (two full pages) served cold, then again: the
+    repeat adopts both pages and recomputes its last token into the second,
+    which first takes the one copy-on-write. Done twice, with two prompts:
+    the first builds the entries, and the second's hit block runs graph
+    against eager (``graph_against_eager``), from the state the copy left."""
+    for i, measure in enumerate((False, True)):
+        ids = [1 + (7 * i + 3 * j) % 250 for j in range(64)]
+        eng.submit(ids, max_new_tokens=8)
+        eng.run_to_completion()
+        eng.submit(ids, max_new_tokens=8)
+        cows = eng.pages.cow_copies
+        if measure:
+            graph_against_eager(eng, f"{label} after a copy-on-write")
+        else:
+            eng.step()
+        check(eng.pages.cow_copies == cows + 1,
+              f"{label}: the page-aligned repeat made {eng.pages.cow_copies - cows} copies")
+        eng.run_to_completion()
+        check(eng.finished[-1].cached_tokens == 63 and eng._committed == 0
+              and eng.pages.pinned == 0,
+              f"{label}: page-aligned repeat cached {eng.finished[-1].cached_tokens} "
+              f"tokens; committed {eng._committed}, pinned {eng.pages.pinned}")
+        eng.finished = []
 
 
 GATEWAY_HOURS = 4
@@ -1343,8 +1575,8 @@ def gateway_phase(cfg, params, kernels, plain_calls):
 # the port's serving entry point as a user starts it; three hours of 12
 # requests, so that both pools serve and the third hour's plan is solved
 # (the LP waits for five profiled requests at every level)
-CLI_ARGV = ["--gateway", "--paged", "--regions", "CA,TX", "--replicas", "1",
-            "--slots", "8", "--hours", "3", "--requests", "12"]
+CLI_ARGV = ["--gateway", "--paged", "--prefix-cache", "--regions", "CA,TX",
+            "--replicas", "1", "--slots", "8", "--hours", "3", "--requests", "12"]
 
 
 @contextlib.contextmanager
@@ -1409,6 +1641,10 @@ def cli_phase(kernels, plain_calls):
           f"cli: served {[eng.cfg.name for eng in engines]}, not the default llama2-13b")
     for i, eng in enumerate(engines):
         check_graph_nodes(eng, f"cli engine {i}")
+    cached = [eng.prefill_tokens_cached for eng in engines]
+    check(all(eng.prefix_cache for eng in engines) and sum(cached) > 0
+          and sum(r.cached_tokens for r in st.telemetry) == sum(cached),
+          f"cli: --prefix-cache engines cached {cached} prefill tokens")
     fwd = [(eng.prefill_groups, eng.steps, eng.chunk_passes) for eng in engines]
     want = {name: sum(expected_launches(cfg.n_layers, *f)[name] for f in fwd)
             for name in kernels}
@@ -1424,7 +1660,8 @@ def cli_phase(kernels, plain_calls):
           f"{solvers}; launches {launches} (= expected over its engines' (prefill "
           f"groups, decode steps, chunk passes) {fwd} = the kernel nodes of its "
           f"{sum(replays.values())} replays), plain calls {plain or 0}; entries "
-          f"{[len(eng.entry_points) for eng in engines]}")
+          f"{[len(eng.entry_points) for eng in engines]}; prefill tokens cached {cached} "
+          f"of {sum(r.prompt_tokens for r in st.telemetry)}")
     return launches
 
 
@@ -1510,12 +1747,21 @@ def serve_phase():
                 if main_path:
                     profile_prefill(cfg, params)
                     free_device_memory()
+                streams = {}
                 for kv_int8, chunk in runs:
-                    for name, n in serve(cfg, params, kv_int8, chunk, kernels,
-                                         plain_calls).items():
+                    launches, streams[kv_int8, chunk] = serve(
+                        cfg, params, kv_int8, chunk, kernels, plain_calls)
+                    for name, n in launches.items():
                         totals[name] += n
                     free_device_memory()    # the run's engine and its graphs
                 if main_path:
+                    t1 = time.monotonic()
+                    for name, n in serve_prefix(cfg, params, kernels, plain_calls,
+                                                streams[False, 0],
+                                                streams[False, 48]).items():
+                        totals[name] += n
+                    free_device_memory()
+                    print(f"serve {cfg.name} prefix cache run: {time.monotonic() - t1:.1f} s")
                     for name, n in gateway_phase(cfg, params, kernels,
                                                  plain_calls).items():
                         totals[name] += n

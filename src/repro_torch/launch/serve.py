@@ -18,14 +18,15 @@ pool per ``--regions`` entry, the LP re-planned per pool from its live
 intensity, engine telemetry fed back into the level profiles, and requests
 routed to the greenest pool under a load cap. ``--tenants``, ``--slo``,
 ``--migrate``, ``--forecast-horizon`` and ``--drain-at`` act as in the
-reference (DESIGN.md §8, §10). Accounting is the reference's: the
+reference (DESIGN.md §8, §10). ``--prefix-cache`` serves the shared
+directive system prompts from indexed pages (DESIGN.md §13). Accounting is the reference's: the
 ``LLAMA2_13B`` profile priced on ``A100_40GB`` with modeled (not wall)
 decode time.
 
 Flags the port cannot serve yet raise ``NotImplementedError`` when the
 arguments are parsed, each naming its ROADMAP.md item: ``--chaos``,
-``--tp-degree`` above 1, ``--prefix-cache`` and the dense layout (no
-``--paged``); so does an architecture the port does not hold. The
+``--tp-degree`` above 1 and the dense layout (no ``--paged``); so does an
+architecture the port does not hold. The
 reference's ``chaos_plan`` returns with fault injection.
 """
 from __future__ import annotations
@@ -87,7 +88,7 @@ def run_gateway(args, cfg, params) -> SproutGateway:
     workload = Workload(seed=0)
     evaluator = QualityEvaluator(sample_size=200)
     # --chaos raises at parsing until fault injection is ported (ROADMAP.md
-    # item 8), so no fault is ever armed here
+    # item 4), so no fault is ever armed here
     injector = no_faults()
     # the watchdog wraps every feed (live or trace): staleness aging and
     # last-good fallback
@@ -189,11 +190,12 @@ def run_gateway(args, cfg, params) -> SproutGateway:
 
 def engine_kv_kwargs(args) -> dict:
     """KV-layout engine kwargs shared by both serving modes. Paged is the
-    port's only layout; ``--tp-degree`` above 1 and ``--prefix-cache``
-    raise at parsing, so the engine's defaults hold for both."""
+    port's only layout; ``--tp-degree`` above 1 raises at parsing, so the
+    engine's default holds for it."""
     return {"kv_int8": args.kv_int8, "prefill_chunk": args.prefill_chunk,
             "paged": True, "page_size": args.page_size,
-            "n_pages": args.pages if args.pages > 0 else None}
+            "n_pages": args.pages if args.pages > 0 else None,
+            "prefix_cache": args.prefix_cache}
 
 
 def refuse_unported(args) -> None:
@@ -202,19 +204,18 @@ def refuse_unported(args) -> None:
     No flag is ignored, and none is switched to something else."""
     arch = args.arch.replace("-", "_")
     if arch not in ARCH_IDS:
-        item = ("9, dense KV layout" if arch in WINDOWED_DENSE
-                else "11, other families")
+        item = ("6, dense KV layout" if arch in WINDOWED_DENSE
+                else "10, other families")
         raise NotImplementedError(
             f"--arch {args.arch}: the port serves {ARCH_IDS} so far "
             f"(ROADMAP.md, modules still to port: item {item})")
     for on, flag, item in (
-            (args.chaos, "--chaos", "8, fault injection (its decode.nonfinite "
+            (args.chaos, "--chaos", "4, fault injection (its decode.nonfinite "
              "fault needs poison_lane)"),
             (args.tp_degree > 1, f"--tp-degree {args.tp_degree}",
-             "10, tensor-parallel decode"),
-            (args.prefix_cache, "--prefix-cache", "5, radix prefix cache"),
+             "7, tensor-parallel decode"),
             (not args.paged, "the dense KV layout (no --paged)",
-             "9, dense KV layout")):
+             "6, dense KV layout")):
         if on:
             raise NotImplementedError(
                 f"{flag}: not in the port yet (ROADMAP.md, modules still to "
@@ -310,8 +311,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "tokens interleaved into the decode blocks "
                          "(0 = whole-prompt prefill)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="radix prefix cache over the paged KV store (not "
-                         "in the port yet: raises)")
+                    help="radix prefix cache over the paged KV store: "
+                         "requests sharing full prompt pages (the "
+                         "directive system prompts) adopt them instead of "
+                         "prefilling them")
     args = ap.parse_args(argv)
     if args.slo:
         args.tenants = True

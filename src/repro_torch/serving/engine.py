@@ -26,6 +26,19 @@ length 0 and writes only the trash page), with pages mapped per chunk.
 The final chunk's first token and the lane's flip to live stay on the
 device, so first tokens arrive through the same one copy per block.
 
+**Radix prefix cache** (``prefix_cache=True``, DESIGN.md §13): the
+allocator indexes every full prompt page under a key chained on its
+prefix. A queued request whose prompt starts with indexed pages (Sprout's
+directive system prompt is the same at the head of every request of a
+level) adopts those pages instead of prefilling them: it is admitted as a
+chunk task, even on an idle engine, whose first chunk starts past the
+shared span (``page_size``-token chunks when ``prefill_chunk`` is 0), and
+its admission charge leaves the adopted pages out. A write into a shared
+page (only the one-token recompute of a fully cached page-aligned prompt
+makes one) first copies the page (``_copy_page``) onto a fresh one.
+``FinishedRequest.cached_tokens`` carries the skipped span to the
+gateway's Eq. 1 credit.
+
 **Entry points** (``entry_points``, the reference's table of compiled
 programs, under its names): a decode block is ``decode_bs{N}_k{K}_greedy``,
 a block that also streams chunks ``mixed_bs{N}_k{K}_c{C}_greedy``, a
@@ -40,8 +53,8 @@ entry is a CUDA graph, captured at its first use and replayed after
 Host bookkeeping (admission, page growth, chunk schedule, finish order,
 block tables) follows the reference line for line, so on the same traffic
 the port maps the same pages and emits the same greedy tokens. Still to
-port (ROADMAP.md): the dense layout, the prefix cache, sampled modes,
-tensor parallelism and fault injection into lanes.
+port (ROADMAP.md): the dense layout, sampled modes, tensor parallelism
+and fault injection into lanes.
 """
 from __future__ import annotations
 
@@ -88,16 +101,20 @@ class RequestState:
     # decode-only seconds attributed to THIS request: each decode block's
     # wall time is partitioned per step across the slots decoding in it
     decode_s: float = 0.0
-    # the exact page count this request was charged at admission; every
-    # release site repays this stored amount
+    # the exact page count this request was charged at admission (with the
+    # prefix cache it depends on the cache's state then); every release
+    # site repays this stored amount
     reserved_pages: int = 0
+    # prompt tokens served from the radix prefix cache (prefill skipped);
+    # reported on FinishedRequest so Eq. 1 accounting can credit them
+    cached_tokens: int = 0
 
 
 @dataclasses.dataclass
 class _ChunkTask:
     """An admitted request still prefilling: its prompt streams into the
     decode blocks ``chunk`` tokens per step; ``next`` is the first prompt
-    position not yet dispatched."""
+    position not yet dispatched (past the adopted span on a prefix hit)."""
     slot: int
     ids: List[int]
     plen: int
@@ -120,6 +137,7 @@ class FinishedRequest:
     deadline_at: float = float("inf")
     t_done: float = 0.0
     retries: int = 0
+    cached_tokens: int = 0  # prompt tokens served from the prefix cache
 
     @property
     def slo_met(self) -> bool:
@@ -143,7 +161,6 @@ class InferenceEngine:
         captured entry writes it in place."""
         for flag, on, item in (
                 ("paged=False", not paged, "dense KV layout"),
-                ("prefix_cache=True", prefix_cache, "radix prefix cache"),
                 ("tp_degree > 1", tp_degree > 1, "tensor-parallel decode")):
             if on:
                 raise NotImplementedError(
@@ -171,16 +188,21 @@ class InferenceEngine:
         self.eos_id = eos_id
         self.decode_block = decode_block
         self.prefill_chunk = prefill_chunk
+        # every stack the port serves pages and chunks, so the cache needs
+        # nothing more (the reference's _prefix_ok)
+        self.prefix_cache = prefix_cache
         self._task: Optional[_ChunkTask] = None
         self.tok = tokenizer or ByteTokenizer()
         max_pages = (max_len + page_size - 1) // page_size
         # default budget: the dense layout's worst-case footprint
         n_pages = n_pages if n_pages is not None else n_slots * max_pages
         self.pages = PageAllocator(n_pages=n_pages, page_size=page_size,
-                                   n_slots=n_slots, max_len=max_len)
+                                   n_slots=n_slots, max_len=max_len,
+                                   prefix_cache=prefix_cache,
+                                   kv_salt=cfg.kv_cache_dtype)
         # sum of slotted requests' admission-time reservations; the
-        # standing invariant _committed <= n_pages means mid-decode page
-        # growth can never hit MemoryError
+        # standing invariant _committed + pages.pinned <= n_pages means
+        # mid-decode page growth can never hit MemoryError
         self._committed = 0
         self.cache = MD.init_paged_cache(cfg, n_pages, page_size,
                                          device=self.device)
@@ -211,6 +233,7 @@ class InferenceEngine:
         self.chunk_passes = 0
         self.pages_grown_chunked = 0   # pages mapped per chunk, not at insert
         self.prefill_tokens_computed = 0   # prompt tokens actually prefilled
+        self.prefill_tokens_cached = 0     # prompt tokens served from cache
         self.decode_tokens = 0
         self.decode_syncs = 0          # host round trips on the decode path
         self.last_decode_s = 0.0       # decode wall time, last dispatch
@@ -285,22 +308,37 @@ class InferenceEngine:
         growth derive from, so growth never exceeds the reservation."""
         return min(prompt_len + max_new, self.max_len - 1)
 
-    def _pages_for(self, prompt_len: int, max_new: int) -> int:
+    def _pages_for(self, prompt_len: int, max_new: int,
+                   cached_pages: int = 0, cow_pages: int = 0) -> int:
         """Worst-case page reservation for a request — the admission unit.
         Directive-aware by construction: ``max_new`` is the budget the
         drawn directive level selected, so brief requests reserve fewer
-        pages and more of them fit a fixed page budget."""
-        return self.pages.pages_needed(self._slot_cap(prompt_len, max_new))
+        pages and more of them fit a fixed page budget. Prefix-aware on
+        top: adopted cached pages cost nothing new and are subtracted; a
+        fully cached page-aligned prompt adds ``cow_pages`` (one) back for
+        the copy-on-write its 1-token recompute triggers."""
+        return (self.pages.pages_needed(self._slot_cap(prompt_len, max_new))
+                - cached_pages + cow_pages)
 
     def _try_prefill(self) -> None:
         """Fill free slots from the queue (FIFO, page-budget gated), then
         prefill the admitted requests grouped by padded prompt length.
         With chunked prefill and live lanes, the queue head is admitted as
         the chunk task instead (one at a time); the whole-prompt path runs
-        only on an idle engine."""
+        only on an idle engine. A prefix hit at the head of the queue is
+        always admitted as the chunk task (its suffix must attend over the
+        adopted pages, which the whole-prompt prefill cannot read); while
+        the task lane is busy the head waits (FIFO)."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free or not self.queue:
             return
+        if self.prefix_cache:
+            head = self.queue[0]
+            ids0 = head.prompt_ids[: self.max_len - head.max_new_tokens - 1]
+            if self.pages.match_prefix(ids0)[0] > 0:
+                if self._task is None:
+                    self._admit_chunk_task(free[0])
+                return
         if self.prefill_chunk > 0 and self.live.any():
             if self._task is None:
                 self._admit_chunk_task(free[0])
@@ -313,8 +351,13 @@ class InferenceEngine:
             # submit() guarantees max_len - max_new_tokens - 1 >= 1, so the
             # truncated prompt is never empty
             ids = st.prompt_ids[: self.max_len - st.max_new_tokens - 1]
+            if self.prefix_cache and self.pages.match_prefix(ids)[0] > 0:
+                break     # hits admit via the chunk task on a later call
             need = self._pages_for(len(ids), st.max_new_tokens)
-            if self._committed + need > self.pages.n_pages:
+            # pinned: shared pages charged to no reservation (0 without the
+            # prefix cache)
+            if (self._committed + need + self.pages.pinned
+                    > self.pages.n_pages):
                 break              # wait for pages to free up
             self._committed += need
             st.reserved_pages = need
@@ -352,6 +395,11 @@ class InferenceEngine:
             offs[b, : len(ids)] = t % ps
         prefill = self._prefill_for(npad, plen)
         out = prefill(toks=toks, lengths=lengths, page_ids=page_ids, offs=offs)
+        if self.prefix_cache:
+            # index the full prompt pages the entry just wrote, so later
+            # requests sharing this prefix adopt instead of recompute
+            for slot, _, ids in grp:
+                self.pages.register_prefix(slot, ids)
         self.prefill_groups += 1
         self.prefill_tokens_computed += int(lengths[:nb].sum())
         # the one device-to-host copy per prefill group
@@ -398,11 +446,31 @@ class InferenceEngine:
         mirrors are pre-staged (position at prompt_len, lane dead) and the
         prompt streams into the following blocks. The lane flips live, and
         its first token is emitted, inside the block its final chunk lands
-        in."""
+        in. On a prefix hit the slot adopts the matched pages and the task
+        starts past them."""
         st = self.queue[0]
         ids = st.prompt_ids[: self.max_len - st.max_new_tokens - 1]
-        need = self._pages_for(len(ids), st.max_new_tokens)
-        if self._committed + need > self.pages.n_pages:
+        cached_tokens = 0
+        adopted: List[int] = []
+        newly_pinned = 0
+        cow = 0
+        if self.prefix_cache:
+            m, pids, newly_pinned = self.pages.match_prefix(ids)
+            if m > 0:
+                # always leave >= 1 prompt token to compute: the last
+                # prompt token's logits give the first token, so a fully
+                # cached page-aligned prompt still streams a 1-token chunk,
+                # whose K/V write lands inside the last shared page and
+                # takes the copy-on-write budgeted here
+                cached_tokens = min(m * self.pages.page_size, len(ids) - 1)
+                cow = 1 if m * self.pages.page_size > cached_tokens else 0
+                adopted = pids
+        need = self._pages_for(len(ids), st.max_new_tokens,
+                               cached_pages=len(adopted), cow_pages=cow)
+        # shared pages are paid for once: the pinned ones, and the cached
+        # ones this adoption would pin, join the reservations in the gate
+        if (self._committed + need + self.pages.pinned + newly_pinned
+                > self.pages.n_pages):
             return                 # wait for pages to free up (FIFO)
         self._committed += need
         st.reserved_pages = need
@@ -410,15 +478,33 @@ class InferenceEngine:
         st.prompt_len = len(ids)
         st.slot = slot
         st.generated = []
-        self.prefill_tokens_computed += len(ids)
+        if adopted:
+            self.pages.adopt(slot, adopted)
+            self.pages.lengths[slot] = cached_tokens
+            st.cached_tokens = cached_tokens
+            self.prefill_tokens_cached += cached_tokens
+        self.prefill_tokens_computed += len(ids) - cached_tokens
         self.slots[slot] = st
         self.positions[slot] = len(ids)
         self.last_token[slot] = 0
         self.live[slot] = False
         self.gen_count[slot] = 0
         self.max_new[slot] = st.max_new_tokens
+        # a prefix engine admits hits here with prefill_chunk == 0: it
+        # streams page_size-token chunks
         self._task = _ChunkTask(slot=slot, ids=ids, plen=len(ids),
-                                chunk=self.prefill_chunk)
+                                next=cached_tokens,
+                                chunk=self.prefill_chunk or self.pages.page_size)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate page ``src`` onto ``dst`` in every leaf
+        of every layer and segment (int8 K/V and their scales too), bit for
+        bit and in place, since every captured graph holds the store's
+        addresses. Runs eagerly on the engine's stream, between blocks,
+        before the replay that writes the page; reads nothing back."""
+        for seg in self.cache:
+            for leaf in seg.values():
+                leaf[:, dst].copy_(leaf[:, src])
 
     # ------------------------------------------------------------------
     def _finish(self, slot: int) -> None:
@@ -432,7 +518,7 @@ class InferenceEngine:
             st.rid, gen, self.tok.decode(gen), st.prompt_len, len(gen),
             st.t_first_token - st.t_submit, st.t_done - st.t_submit,
             st.directive_level, st.decode_s, st.tenant, st.deadline_at,
-            st.t_done, st.retries))
+            st.t_done, st.retries, st.cached_tokens))
         self.slots[slot] = None
         self.live[slot] = False
         self.pages.release(slot)
@@ -579,6 +665,20 @@ class InferenceEngine:
                     nxt_p += n
                     self.chunk_steps += 1
             finishing = nxt_p == task.plen
+        if self.prefix_cache:
+            # copy-on-write before this block's appends: a write landing in
+            # a shared or adopted page remaps the lane onto a fresh page and
+            # copies the contents first. Only the 1-token recompute of a
+            # fully cached page-aligned prompt fires it (its admission
+            # budgeted the page); decode appends land past the shared span
+            targets = [(int(i), int(self.positions[i]))
+                       for i in np.nonzero(self.live)[0]]
+            if task is not None:
+                targets.append((task.slot, task.next))
+            for tslot, tpos in targets:
+                cw = self.pages.prepare_append(tslot, tpos)
+                if cw is not None:
+                    self._copy_page(*cw)
         # grow each live slot's page map to cover this block's appends
         # (bounded by the slot's own cap, so growth never exceeds the
         # admission-time reservation and can never throw here)
@@ -670,6 +770,10 @@ class InferenceEngine:
                 st = self.slots[i]
                 if st.t_first_token == 0.0:
                     st.t_first_token = time.monotonic()
+                if self.prefix_cache:
+                    # the whole prompt's K/V is written: index its full
+                    # pages (adopted ones are indexed already)
+                    self.pages.register_prefix(i, task.ids)
                 self._task = None
             self.pages.lengths[i] = (int(self.positions[i]) if finishing
                                      else task.next)
@@ -700,6 +804,7 @@ class InferenceEngine:
                 self.pages.release(i)
                 self._committed -= st.reserved_pages
                 st.reserved_pages = 0
+                st.cached_tokens = 0
         # a mid-prefill chunk task leaves with its slot; its prompt ids are
         # verbatim, so a resubmission elsewhere restarts identically
         self._task = None
@@ -722,6 +827,7 @@ class InferenceEngine:
                 self.pages.release(i)
                 self._committed -= st.reserved_pages
                 st.reserved_pages = 0
+                st.cached_tokens = 0
                 if self._task is not None and self._task.slot == i:
                     self._task = None
                 return st
@@ -748,4 +854,7 @@ class InferenceEngine:
                    peak_pages_in_use=self.peak_pages_in_use,
                    peak_kv_bytes_in_use=self.peak_pages_in_use * page_bytes,
                    committed_pages=self._committed)
+        if self.prefix_cache:
+            rep.update(prefill_tokens_computed=self.prefill_tokens_computed,
+                       prefill_tokens_cached=self.prefill_tokens_cached)
         return rep

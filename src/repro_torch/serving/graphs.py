@@ -24,6 +24,7 @@ out; so a counter equals the calls the card executed for dispatches.
 """
 from __future__ import annotations
 
+import gc
 import math
 import time
 from typing import Callable, Dict, Tuple
@@ -132,8 +133,17 @@ class Entry:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         mid = [w.launches for w in COUNTED]
-        with torch.cuda.graph(graph, pool=pool.handle):
-            self.out = self.fn(**self.inputs)
+        # the collector stays off while the stream captures: a collection
+        # there can free a dropped engine's graph, a call CUDA refuses
+        # during a capture, and the refusal invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool.handle):
+                self.out = self.fn(**self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.per_run = tuple(w.launches - m for w, m in zip(COUNTED, mid))
         for w, n in zip(COUNTED, before):
             w.launches = n

@@ -97,12 +97,24 @@ def test_page_budget_gates_admission_not_completion(models):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(paged=False), dict(paged=True, prefill_chunk=8, prefix_cache=True),
-    dict(paged=True, prefix_cache=True), dict(paged=True, tp_degree=2)])
+    dict(paged=False), dict(paged=True, tp_degree=2)])
 def test_options_not_yet_ported_raise(models, kwargs):
     _, cfg, _, params = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         InferenceEngine(cfg, params, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(paged=True, prefill_chunk=8, prefix_cache=True),
+    dict(paged=True, prefix_cache=True)])
+def test_prefix_cache_is_served(models, kwargs):
+    """The radix prefix cache, refused before it was ported, builds an
+    engine whose allocator indexes prompt pages (salted by the KV dtype)
+    and whose ``kv_stats`` report the prefill it skipped."""
+    _, cfg, _, params = models
+    eng = InferenceEngine(cfg, params, device="cpu", **kwargs)
+    assert eng.prefix_cache and eng.pages.prefix_cache
+    assert eng.kv_stats()["prefill_tokens_cached"] == 0
 
 
 def test_sampled_request_and_lane_poison_raise(models):

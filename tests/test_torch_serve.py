@@ -3,7 +3,7 @@ package's (``repro.launch.serve``): ``run_gateway`` of both, given the same
 arguments and the same weights (the reference's params and their
 ``params_from_jax`` copy), prints the same lines. Flags the port cannot
 serve yet raise ``NotImplementedError`` naming their ROADMAP.md item, and
-nothing falls back from the card to the CPU."""
+nothing falls back from the card to the CPU. ``--prefix-cache`` serves."""
 import jax
 import numpy as np
 import pytest
@@ -31,8 +31,8 @@ def weights():
 
 
 @pytest.mark.parametrize("extra", [[], ["--tenants", "--migrate",
-                                        "--drain-at", "1"]],
-                         ids=["plain", "tenants-migrate-drain"])
+                                        "--drain-at", "1"], ["--prefix-cache"]],
+                         ids=["plain", "tenants-migrate-drain", "prefix-cache"])
 def test_run_gateway_prints_the_reference_lines(weights, extra, capsys):
     jcfg, jp, cfg, params = weights
     args = serve.parse_args(BASE + extra)
@@ -51,21 +51,25 @@ def test_run_gateway_prints_the_reference_lines(weights, extra, capsys):
         # time, never had 20 samples on both
         assert sum(len(t) >= 20
                    for t in pool.scheduler._step_times.values()) < 2
-    if extra:
+    if "--drain-at" in extra:
         assert any("draining" in ln for ln in got)
         assert gw.stats.migrated > 0
+    engines = [e for pool in gw.pools for e in pool.scheduler.engines]
+    assert all(e.prefix_cache == ("--prefix-cache" in extra) for e in engines)
+    if "--prefix-cache" in extra:
+        # the directive system prompts are served from shared pages
+        assert sum(r.cached_tokens for r in gw.stats.telemetry) == sum(
+            e.prefill_tokens_cached for e in engines) > 0
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--gateway", "--paged", "--chaos"], "item 8"),
-    (["--gateway", "--paged", "--tp-degree", "2"], "item 10"),
-    (["--paged", "--prefix-cache"], "item 5"),
-    (["--gateway"], "item 9"),
-    (["--paged", "--arch", "command_r_plus_104b"], "item 11"),
-    (["--paged", "--arch", "deepseek_v2_lite"], "item 11"),
-    (["--paged", "--arch", "starcoder2_15b"], "item 9"),
-], ids=["chaos", "tp-degree", "prefix-cache", "dense", "layernorm", "other",
-        "windowed-dense"])
+    (["--gateway", "--paged", "--chaos"], "item 4"),
+    (["--gateway", "--paged", "--tp-degree", "2"], "item 7"),
+    (["--gateway"], "item 6"),
+    (["--paged", "--arch", "command_r_plus_104b"], "item 10"),
+    (["--paged", "--arch", "deepseek_v2_lite"], "item 10"),
+    (["--paged", "--arch", "starcoder2_15b"], "item 6"),
+], ids=["chaos", "tp-degree", "dense", "layernorm", "other", "windowed-dense"])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         serve.parse_args(["--device", "cpu"] + argv)
@@ -118,14 +122,17 @@ def test_card_is_asked_for_and_never_replaced(monkeypatch):
     ["--gateway", "--regions", "CA", "--hours", "1", "--requests", "3",
      "--replicas", "1", "--kv-int8", "--prefill-chunk", "8"],
     ["--hours", "2", "--requests", "3", "--replicas", "1"],
-], ids=["gateway-int8-chunked", "scheduler"])
+    ["--gateway", "--hours", "2", "--requests", "4", "--replicas", "2",
+     "--prefix-cache"],
+], ids=["gateway-int8-chunked", "scheduler", "gateway-prefix-cache"])
 def test_main_serves_on_the_cpu(argv, capsys):
     serve.main(["--device", "cpu", "--paged"] + argv)
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("hour 0:")
     assert not any(ln.startswith("rejected") for ln in out)
     if "--gateway" in argv:
-        assert ", 0 rejected," in next(ln for ln in out
-                                       if ln.startswith("total"))
+        total = next(ln for ln in out if ln.startswith("total"))
+        assert ", 0 rejected," in total
+        assert "--prefix-cache" not in argv or " across 8 requests " in total
     else:
         assert out[-1].endswith("across 6 requests")

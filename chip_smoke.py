@@ -23,7 +23,12 @@ Phases; any failure raises and the script exits non-zero:
                attention at llama2-13b's 40 heads of 128. bf16 flash
                outputs are held to one bf16 ulp of the output scale (and
                2e-2) on under 1 % of the outputs (fp32 P·V).
-  4. small   - the reduced llama2-13b (untied embeddings) and granite
+  4. sampler - jax's threefry key stream (``serving/prng.py``) and the
+               sampler on the card against jax.random's known answers:
+               threefry2x32(0, 0), split, fold_in, bits, uniform, and
+               sample_logits_batched and sample_temperature_only with and
+               without fold_ids; every word, bit and token equal.
+  5. small   - the reduced llama2-13b (untied embeddings) and granite
                configs in fp32 (vocab 512): the engine on the card (kernel
                path) emits the same greedy tokens as on the CPU (plain
                path), whole-prompt and with chunked prefill (chunk 8), and
@@ -34,8 +39,14 @@ Phases; any failure raises and the script exits non-zero:
                cache on and off, fp32 and int8 KV: card and CPU give the
                same tokens and block tables, hits skip prefill, the ledger
                is clean at drain, and in fp32 prefix-on gives prefix-off's
-               tokens.
-  5. serve   - the main path: full-width llama2-13b, the paper's model, in
+               tokens. Then seeded sampled decoding (fp32): requests cycle
+               greedy, temperature-only and top-k/top-p, whole-prompt
+               (buckets under the 4 slots, rows folded by slot id), chunked
+               (first tokens drawn in the mixed entry), with the prefix
+               cache, and greedy and temperature-only alone (chunked, so
+               decode and mixed _temp entries run); card and CPU give the
+               same tokens, tables and entries.
+  6. serve   - the main path: full-width llama2-13b, the paper's model, in
                bf16 (random weights from a seed; each model's weights are
                freed before the next is drawn) served through
                CarbonAwareScheduler ->
@@ -45,13 +56,19 @@ Phases; any failure raises and the script exits non-zero:
                whole-prompt prefill group, paged attention in every decode
                step), three times: bf16 KV, int8 KV, and bf16 KV with
                chunked prefill (chunk 48, so chunks straddle the 32-token
-               pages); then one bf16 run each of full-width llama2-7b,
+               pages); then twice more with sampled traffic (a third of the
+               requests greedy, a third temperature 0.8, a third the
+               reference bench's temperature 0.9 / top_k 50 / top_p 0.95),
+               bf16 KV whole-prompt and chunked 48; then one bf16 run each
+               of full-width llama2-7b,
                minicpm-2b and granite-3-2b (GQA groups of 4), each after a
                full-width forward pass (finite logits of the vocabulary's
                width). Each run drives its traffic once to build the entry
                table, then again with the table frozen (its names are
-               snapshotted before and after, and must not change), so
-               decode tokens/s comes from replayed dispatches only. No
+               snapshotted before and after, and must not change; both
+               drives start from the engine's seed key and must give
+               identical streams), so decode tokens/s comes from replayed
+               dispatches only. No
                plain version may run in the building drive, where every
                wrapper call of a capture runs. Around the measured drive
                the launch counts are zeroed and read, and checked against
@@ -68,7 +85,14 @@ Phases; any failure raises and the script exits non-zero:
                (held to the counters and the forward passes; the
                profiler's kernel events may fall short of them, never
                above) and the span of the one replay (CUDA events), which
-               may not exceed the wall. Each model's peak device memory and
+               may not exceed the wall. The sampled bf16 run profiles
+               instead decode_bs8_k8_{greedy,temp,full} in turns (ms a step,
+               wall and replay span, the sampler's share against greedy and
+               its graph nodes a step) after a _full block runs graph
+               against eager; the sampled chunked run runs a mixed _full
+               block graph against eager; the prefill profile times the
+               group's draw alone and the host key's split. Each model's
+               peak device memory and
                wall seconds are printed. llama2-13b also serves the same
                traffic on a prefix-cache engine: a cold drive and a warm one
                build the entries, a second warm drive is measured with the
@@ -78,15 +102,16 @@ Phases; any failure raises and the script exits non-zero:
                to the bf16 run's printed beside the chunked run's (bf16: a
                hit's suffix, like a chunk, is computed by the chunk pass,
                not by flash, so a near-tie may part).
-  6. graphs  - inside each run's profile, one block (a decode block; a mixed
-               block in the chunked run) is run twice from one state: the
+  7. graphs  - inside each run's profile, one block (a decode block; a mixed
+               block in the chunked runs, greedy and sampled) is run
+               twice from one state: the
                entry's eager callable, then, with the page store and the
                static inputs restored, the graph's replay. Tokens, validity
                and live mask must be identical and the page store equal
                byte for byte outside the write-only trash page; the host
                wall of each is printed. The prefix-cache run does this for
                the block that follows a copy-on-write.
-  7. gateway - Sprout's control plane over llama2-13b's weights: SproutGateway
+  8. gateway - Sprout's control plane over llama2-13b's weights: SproutGateway
                with two regional pools (CA, TX; watchdog-wrapped June
                traces), one full-width engine each (8 slots, max_len 1024,
                EOS off, so budgets bound every request), the directive LP
@@ -108,7 +133,7 @@ Phases; any failure raises and the script exits non-zero:
                and KV bytes a token) from the model's power times measured
                decode seconds and from the roofline, beside the reference's
                own accounting, which prices the same model (LLAMA2_13B).
-  8. cli     - the port's serving entry point, `main` of
+  9. cli     - the port's serving entry point, `main` of
                repro_torch.launch.serve (what `python -m
                repro_torch.launch.serve --gateway --paged ...` runs), in this
                process: no --arch, so the default llama2-13b, drawn anew
@@ -142,6 +167,7 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
             torch.float32: 67e12}            # fp32 outside the tensor cores
 TOL = {"bf16": 2e-2, "f32": 2e-5, "int8": 2e-2}
+SEED = 0                                     # every serve engine's PRNG seed
 PROMPTS = [
     "Summarize today's carbon intensity forecast for the western grid.",
     "What is a generation directive?",
@@ -596,7 +622,7 @@ def flash_phase():
 
 
 # ----------------------------------------------------------------------
-# phases 4 and 5: the serving path
+# phases 4 to 9: the sampler and the serving path
 # ----------------------------------------------------------------------
 
 def to_device(tree, dev):
@@ -605,6 +631,61 @@ def to_device(tree, dev):
     if isinstance(tree, list):
         return [to_device(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# jax.random's known answers (jax 0.9.0's partitionable threefry2x32),
+# computed with the reference on the CPU; tests/test_torch_prng.py and
+# tests/test_torch_sampler.py recompute them from the reference
+RANDOM123 = (0x6B200159, 0x99BA4EFE)      # threefry2x32(key 0, counter 0)
+SPLIT_0_3 = [[1797259609, 2579123966], [928981903, 3453687069], [4146024105, 2718843009]]
+FOLD_42_7 = [2547012911, 1371500959]
+BITS_0_4 = [4070199207, 4202968722, 1427181096, 2012915765]
+UNIFORM_1_3 = [0.4386324882507324, 0.5337529182434082, 0.44591832160949707]
+# sample_logits_batched on default_rng(0).standard_normal((4, 512)), key
+# PRNGKey(0), without fold_ids and with them
+SAMPLER_PARAMS = ([0.9, 0.7, 0.0, 1.0], [50, 0, 5, 8], [0.95, 0.8, 1.0, 1.0])
+SAMPLER_FOLD = [3, 1, 0, 2]
+SAMPLER_TOKENS = ([403, 249, 27, 270], [270, 249, 27, 74])
+# sample_temperature_only on the same logits, key and temperatures (top_k
+# 0, top_p 1): without and with SAMPLER_FOLD
+TEMP_ONLY_TOKENS = ([403, 211, 27, 503], [53, 211, 27, 466])
+
+
+def sampler_phase():
+    """The key stream and the sampler on the card, against jax's known
+    answers: every word, bit and token equal (the draws run where the
+    entries run them, on device tensors)."""
+    from repro_torch.serving import prng
+    from repro_torch.serving.sampler import (sample_logits_batched,
+                                             sample_temperature_only)
+    dev = "cuda"
+    z = torch.zeros((), dtype=torch.int64, device=dev)
+    got = {
+        "threefry2x32(0, 0)": (tuple(int(x) for x in prng.threefry_2x32(z, z, z, z)),
+                               RANDOM123),
+        "split(PRNGKey(0), 3)": (prng.split(prng.PRNGKey(0, dev), 3).tolist(), SPLIT_0_3),
+        "fold_in(PRNGKey(42), 7)": (prng.fold_in(prng.PRNGKey(42, dev), 7).tolist(),
+                                    FOLD_42_7),
+        "bits(PRNGKey(0), (4,))": (prng.bits(prng.PRNGKey(0, dev), (4,)).tolist(), BITS_0_4),
+        "uniform(PRNGKey(1), (3,))": (prng.uniform(prng.PRNGKey(1, dev), (3,)).tolist(),
+                                      UNIFORM_1_3),
+    }
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 512))
+                              .astype(np.float32)).to(dev)
+    t, k, p = (torch.tensor(x, device=dev) for x in SAMPLER_PARAMS)
+    no_k, no_p = torch.zeros_like(k), torch.ones_like(p)
+    folds = (None, torch.tensor(SAMPLER_FOLD, device=dev))
+    for fold, want, want_temp in zip(folds, SAMPLER_TOKENS, TEMP_ONLY_TOKENS):
+        tokens = sample_logits_batched(logits, prng.PRNGKey(0, dev), t, k, p, fold_ids=fold)
+        got[f"sample_logits_batched fold_ids={fold is not None}"] = (tokens.tolist(), want)
+        tokens = sample_temperature_only(logits, prng.PRNGKey(0, dev), t, no_k, no_p,
+                                         fold_ids=fold)
+        got[f"sample_temperature_only fold_ids={fold is not None}"] = (tokens.tolist(),
+                                                                       want_temp)
+    wrong = {name: pair for name, pair in got.items() if pair[0] != pair[1]}
+    check(not wrong, f"sampler phase: (card, jax) differ: {wrong}")
+    print(f"sampler: threefry key stream and sampler on the card equal jax.random's known "
+          f"answers ({len(got)} checks: {', '.join(got)})")
 
 
 def small_phase(arch):
@@ -662,6 +743,63 @@ def small_phase(arch):
               + (f"differs as (rid, first differing token, length) {diff}" if diff
                  else "identical"))
     small_prefix(cfg, cpu_params, gpu_params)
+    small_sampled(cfg, cpu_params, gpu_params)
+
+
+def small_sampled(cfg, cpu_params, gpu_params):
+    """Seeded sampled decoding on the reduced config (fp32): requests cycle
+    greedy, temperature-only and top-k/top-p (``sampling_modes``), on the
+    card and the CPU, whole-prompt (budgets differ, so later blocks run in
+    buckets smaller than the 4 slots, whose rows fold by slot id), chunked
+    (chunk 8: late requests admitted as chunk tasks, their first tokens
+    drawn in the mixed entry) and with the prefix cache on directive-prompt
+    traffic (hits stream their suffix through the chunk lane); then greedy
+    and temperature-only requests alone, chunked, so that bucketed
+    ``decode_*_temp`` and ``mixed_*_temp`` entries run (where a top-k/top-p
+    row shares the bucket, the ``_full`` entry runs). Card and CPU must
+    give the same tokens, block tables and entry names."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    modes = sampling_modes()
+    cycle = list(modes.values())
+    plain = [(tok.encode(p, bos=True), 12 + 4 * i) for i, p in enumerate(PROMPTS[:6])]
+    drives = {"whole-prompt": (plain, {}, cycle),
+              "chunked": (plain, {"prefill_chunk": 8}, cycle),
+              "prefix cache": (directive_traffic(tok), {"prefix_cache": True}, cycle),
+              "temperature-only": (plain, {"prefill_chunk": 8},
+                                   [modes["greedy"], modes["temp"]])}
+    label = f"small sampled reduced {cfg.name} fp32"
+    for drive, (traffic, kw, mix) in drives.items():
+        runs = {}
+        for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
+            eng = InferenceEngine(cfg, params, n_slots=4, max_len=160, paged=True,
+                                  page_size=16, decode_block=4, seed=SEED, device=dev, **kw)
+            tables = record_tables(eng)
+            for i, (ids, n) in enumerate(traffic):
+                eng.submit(ids, max_new_tokens=n, sampling=mix[i % len(mix)])
+            eng.run_to_completion()
+            runs[dev] = ({f.rid: f.token_ids for f in eng.finished}, tables,
+                         sorted(eng.entry_points), eng.prefill_tokens_cached, eng.chunk_steps)
+        streams, _, entries, cached, chunks = runs["cuda"]
+        check(runs["cuda"] == runs["cpu"], f"{label} {drive}: card and CPU differ in tokens, "
+              f"block tables, entries or counters")
+        check(len(streams) == len(traffic), f"{label} {drive}: {len(streams)} finished")
+        blocks = [n for n in entries if n.startswith(("decode_", "mixed_"))]
+        bucketed = [n for n in blocks if n.startswith(("decode_bs1_", "decode_bs2_"))
+                    and not n.endswith("_greedy")]
+        sampled_mixed = [n for n in blocks if n.startswith("mixed_")
+                         and not n.endswith("_greedy")]
+        temp = [n for n in blocks if n.endswith("_temp")]
+        want = {"whole-prompt": bool(bucketed), "chunked": bool(sampled_mixed),
+                "prefix cache": cached > 0 and bool(sampled_mixed),
+                "temperature-only": (any(n.startswith("decode_bs1_") for n in temp)
+                                     and any(n.startswith("mixed_") for n in temp)
+                                     and not any(n.endswith("_full") for n in blocks))}[drive]
+        check(want, f"{label} {drive}: entries {blocks}, {cached} prompt tokens cached")
+        print(f"{label} {drive}: card == CPU tokens, block tables and entries for "
+              f"{len(streams)} requests ({sum(map(len, streams.values()))} tokens); "
+              f"{chunks} chunks, {cached} prompt tokens cached; block entries {blocks}")
 
 
 def record_tables(eng):
@@ -919,7 +1057,7 @@ def graph_against_eager(eng, label):
     callable, then (page store and static inputs restored) the graph's
     replay. Tokens, validity and live mask must be identical and the page
     store equal byte for byte outside the trash page; prints what differs,
-    and the host wall of each run (with a sync)."""
+    and the host wall of each run (with a sync). Returns the entry's name."""
     from repro_torch.serving.graphs import COUNTED
     seen = []
 
@@ -932,7 +1070,7 @@ def graph_against_eager(eng, label):
             counts = [w.launches for w in COUNTED]
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            out_e = entry.fn(**entry.inputs).clone()
+            out_e = entry.eager().clone()
             torch.cuda.synchronize()
             eager_ms = (time.monotonic() - t0) * 1e3
             pages_e = [x.clone() for _, x in leaves]
@@ -984,6 +1122,7 @@ def graph_against_eager(eng, label):
           f"replayed ({k} steps)")
     check(not out_diff and not page_diff,
           f"{label}: {name} replay differs from its eager run: {out_diff} {page_diff}")
+    return name
 
 
 def device_report(prof, steps):
@@ -1090,7 +1229,10 @@ def profile_prefill(cfg, params, B=8, T=128):
     128 tokens, written into pages) through an engine's entry
     ``prefill_bs8_p128``: built once, then timed bare (host wall of the
     dispatch, with its first-token copy; CUDA events around the replay),
-    then under torch.profiler."""
+    then under torch.profiler. Also the group's draw alone
+    (``sample_logits_batched`` over (8, vocab) logits of greedy rows, as
+    the entry runs it, replayed from a graph) and the host key's split
+    (``host_split_ms``), the sampler's share of the group."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import InferenceEngine
     eng = InferenceEngine(cfg, params, n_slots=B, max_len=1024, paged=True,
@@ -1133,7 +1275,11 @@ def profile_prefill(cfg, params, B=8, T=128):
           f"prefill profile: the group ran kernels {ran} by its graph, {card} in the "
           f"profiler's events; counted {counted}, expected {want}")
     kern_ms, by_name, top = device_report(prof, 1)
-    print(f"profile prefill group B={B} T={T}, replayed: wall {bare_ms:.2f} ms bare; "
+    draw_ms = group_draw_ms(eng, B)
+    split_ms = host_split_ms()
+    print(f"profile prefill group B={B} T={T}, replayed: wall {bare_ms:.2f} ms bare "
+          f"(of which the draw alone {draw_ms:.4f} ms device, the host key's split "
+          f"{split_ms:.4f} ms host: {(draw_ms + split_ms) / bare_ms:.3f} of the wall); "
           f"device kernel time {kern_ms:.3f} ms (torch.profiler; busy share "
           f"{kern_ms / bare_ms:.3f} of the bare wall); replay device time {replay_ms:.3f} "
           f"ms (CUDA events; busy share {replay_ms / bare_ms:.3f}); flash_attention "
@@ -1144,18 +1290,207 @@ def profile_prefill(cfg, params, B=8, T=128):
           f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
 
 
-def scheduler_drive(eng):
+def group_draw_ms(eng, B):
+    """Device ms of a prefill group's draw alone, as its entry runs it:
+    ``sample_logits_batched`` over (B, vocab) logits of the model's dtype,
+    every row greedy (temperature 0, top_k 0, top_p 1), 30 calls replayed
+    from one CUDA graph (``cuda_ms``)."""
+    from repro_torch.serving import prng
+    from repro_torch.serving.sampler import sample_logits_batched
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(B, eng.cfg.vocab_size, generator=gen, device="cuda").to(
+        eng.params["embed"]["tok"].dtype)
+    key = prng.split(prng.PRNGKey(SEED, "cuda"))[1]
+    temp, topp = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
+    topk = torch.zeros(B, dtype=torch.int64, device="cuda")
+    return cuda_ms(lambda: sample_logits_batched(logits, key, temp, topk, topp))
+
+
+def host_split_ms(calls=500):
+    """Host ms of one split of the engine's host key (a CPU tensor, split
+    once a prefill group and once a block before the dispatch, while the
+    card waits), mean of ``calls`` splits."""
+    from repro_torch.serving import prng
+    key = prng.PRNGKey(SEED)
+    for _ in range(10):
+        key, _ = prng.split(key)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        key, _ = prng.split(key)
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def sampling_modes():
+    """The sampled runs' three kinds of request, one a third of the
+    traffic: greedy, temperature 0.8, and the reference benchmark's
+    ``serve.engine_decode_sampled`` (temperature 0.9, top_k 50, top_p
+    0.95)."""
+    from repro_torch.serving.sampler import SamplingParams
+    return {"greedy": SamplingParams(), "temp": SamplingParams(temperature=0.8),
+            "full": SamplingParams(temperature=0.9, top_k=50, top_p=0.95)}
+
+
+def sampler_alone_ms(eng):
+    """One decode step's sampler alone, each mode: the step's key split and
+    the draw over (n_slots, vocab) logits of the model's dtype (8 lanes of
+    the mode's parameters, folded by slot id). {mode: (device ms a step, 30
+    steps replayed from one CUDA graph (``cuda_ms``); kernel ms a step,
+    torch.profiler's sum over 3 eager steps; its top kernels)}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import prng
+    B, V = eng.n_slots, eng.cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(B, V, generator=gen, device="cuda").to(eng.params["embed"]["tok"].dtype)
+    key = prng.PRNGKey(SEED, "cuda")
+    rows = torch.arange(B, device="cuda")
+    out = {}
+    for mode, sp in sampling_modes().items():
+        fn = eng._SAMPLE_FNS[mode]
+        params = (torch.full((B,), sp.temperature, device="cuda"),
+                  torch.full((B,), sp.top_k, device="cuda"),
+                  torch.full((B,), sp.top_p, device="cuda"))
+
+        def step():
+            keys = prng.split(key, 2)
+            return fn(logits, keys[1], *params, fold_ids=rows)
+        graph_ms = cuda_ms(step)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+        kern_ms, _, top = device_report(prof, 3)
+        out[mode] = (graph_ms, kern_ms, top)
+    return out
+
+
+def profile_modes(eng, label):
+    """The sampler's cost on the card: a decode block of ``n_slots`` lanes x
+    8 steps in each mode (every lane greedy, every lane temperature 0.8,
+    every lane top-k/top-p), through ``decode_bs8_k8_{greedy,temp,full}``.
+    Each mode's scenario runs once to build its entries; then a ``_full``
+    block runs graph against eager; then the three modes are timed in
+    three turns (greedy, temp, full, full, temp, greedy, greedy, temp,
+    full): host wall per step and the replay's device span (CUDA events).
+    Prints each mode's ms a step, its difference from greedy and share of
+    the step, its kernel nodes a step beyond the greedy graph's, and the
+    sampler's device time alone (``sampler_alone_ms``). Then one block of
+    each mode under torch.profiler: kernel time a step, cuBLAS's share.
+    """
+    from torch.profiler import ProfilerActivity, profile
+    modes = sampling_modes()
+    prompts = [[1 + (7 * i + j) % 250 for j in range(100)] for i in range(eng.n_slots)]
+    k = eng.decode_block
+
+    def scenario(mode, measure=None):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=40, sampling=modes[mode])
+        eng.step()                                 # prefill + first block
+        if measure is not None:
+            measure()
+        eng.run_to_completion()
+        eng.finished = []
+
+    def timed(mode, spans):
+        events = []
+        torch.cuda.synchronize()
+        steps0, t0 = eng.steps, time.monotonic()
+        with timed_runs(eng, events):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        check(eng.steps - steps0 == k and int(eng.live.sum()) == eng.n_slots,
+              f"{label} {mode}: the timed block ran {eng.steps - steps0} steps, "
+              f"{int(eng.live.sum())} lanes live after it")
+        name = f"decode_bs{eng.n_slots}_k{k}_{mode}"
+        check([n for n, _, _ in events] == [name], f"{label}: timed {events}, not {name}")
+        spans.setdefault(mode, []).append(
+            (wall / k, replay_span(events, wall, f"{label} {mode}") / k))
+
+    for mode in modes:
+        scenario(mode)
+    names = set(eng.entry_points)
+    scenario("full", lambda: graph_against_eager(eng, f"{label} top-k/top-p"))
+    spans = {}
+    for mode in ("greedy", "temp", "full", "full", "temp", "greedy", "greedy", "temp", "full"):
+        scenario(mode, lambda: timed(mode, spans))
+    kernels = {}
+
+    def profiled(mode):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.step()
+        torch.cuda.synchronize()
+        kern_ms, by_name, _ = device_report(prof, k)
+        kernels[mode] = (kern_ms, by_name("nvjet"))
+
+    for mode in modes:
+        scenario(mode, lambda: profiled(mode))
+    check(set(eng.entry_points) == names, f"{label}: the sampler profile built entries "
+          f"{sorted(set(eng.entry_points) - names)} after its warm-up")
+    nodes = {mode: graph_kernel_nodes(eng.entry_points[f"decode_bs{eng.n_slots}_k{k}_{mode}"])
+             ["all"] for mode in modes}
+    alone = sampler_alone_ms(eng)
+    mean = {mode: tuple(sum(x) / len(x) for x in zip(*runs)) for mode, runs in spans.items()}
+    g_wall, g_span = mean["greedy"]
+    print(f"profile {label} sampler: decode block of {eng.n_slots} lanes x {k} steps, "
+          "replayed, ms a step (host wall with sync; replay device span, CUDA events), "
+          "mean of three turns: " + "; ".join(
+              f"decode_bs{eng.n_slots}_k{k}_{mode} wall {w:.3f} (runs "
+              f"{', '.join(f'{x[0]:.3f}' for x in spans[mode])}), span {sp:.3f} "
+              f"(runs {', '.join(f'{x[1]:.3f}' for x in spans[mode])}), "
+              f"{sp - g_span:+.3f} ms against greedy (share of the span "
+              f"{(sp - g_span) / sp:.3f}), graph kernel nodes {nodes[mode]} "
+              f"({(nodes[mode] - nodes['greedy']) / k:g} a step beyond greedy's); "
+              f"torch.profiler, one block: kernel time {kernels[mode][0]:.3f} ms a step, "
+              f"of which cuBLAS (nvjet) {kernels[mode][1]:.3f}, the rest "
+              f"{kernels[mode][0] - kernels[mode][1]:.3f}; the sampler alone "
+              f"(split + draw, 8 x {eng.cfg.vocab_size}) {alone[mode][0]:.4f} ms a step "
+              f"replayed from a graph, {alone[mode][1]:.4f} ms of kernels, top: "
+              f"{alone[mode][2]}"
+              for mode, (w, sp) in mean.items())
+          + f" ({nvidia_smi()})")
+
+
+def mixed_full_against_eager(eng, label):
+    """A mixed block of top-k/top-p lanes (the chunk lane's first token drawn
+    with the step's third key) run graph against eager: 5 lanes decode
+    while a late 100-token top-k/top-p prompt streams in chunks. The
+    scenario runs once to build its entries, then again to compare."""
+    full = sampling_modes()["full"]
+    n_first = eng.n_slots - 3
+    prompts = [[1 + (7 * i + j) % 250 for j in range(100)] for i in range(n_first + 1)]
+
+    def scenario(compare):
+        for p in prompts[:n_first]:
+            eng.submit(p, max_new_tokens=40, sampling=full)
+        eng.step()                                 # prefill + first block
+        eng.submit(prompts[n_first], max_new_tokens=40, sampling=full)
+        name = graph_against_eager(eng, f"{label} top-k/top-p") if compare else None
+        eng.run_to_completion()
+        eng.finished = []
+        return name
+
+    scenario(False)
+    name = scenario(True)
+    check(name.startswith("mixed_") and name.endswith("_full"),
+          f"{label}: the compared block ran {name}, not a mixed _full entry")
+
+
+def scheduler_drive(eng, sampled=False):
     """One drive of the main path's traffic: the 12 prompts through
     ``CarbonAwareScheduler`` on ``eng``, which renders each drawn directive
     level as the system prompt and caps the budget (64/48/32). The mix is
     uniform, as the serving launcher draws before the LP has level
     profiles, from one seed, so every drive sees the same levels, budgets
-    and shapes. Returns the scheduler and the drive's wall seconds."""
+    and shapes. ``sampled``: request i carries the i % 3-th of
+    ``sampling_modes``. Returns the scheduler and the drive's wall
+    seconds."""
     from repro_torch.serving.scheduler import CarbonAwareScheduler, ServeRequest
+    modes = list(sampling_modes().values())
     rng = np.random.default_rng(0)
     sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)))
-    for p in PROMPTS:
-        sched.submit(ServeRequest(0, p, max_new_tokens=64, max_new_by_level=(64, 48, 32)))
+    for i, p in enumerate(PROMPTS):
+        sched.submit(ServeRequest(0, p, max_new_tokens=64, max_new_by_level=(64, 48, 32),
+                                  sampling=modes[i % 3] if sampled else modes[0]))
     t0 = time.monotonic()
     sched.run()
     torch.cuda.synchronize()
@@ -1186,21 +1521,33 @@ def check_measured_drive(eng, sched, label, launches, replays, plain, fwd):
     check(sum(plain.values()) == 0, f"{label}: plain versions called on the card: {plain}")
 
 
-def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
+def in_order(sched):
+    """The token streams of a drive's requests, in the order submitted."""
+    return [f.token_ids for f in sorted(sched.finished, key=lambda f: f.rid)]
+
+
+def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=False):
     """One main-path run: 12 requests through the scheduler, driven once to
     build the entry table (every wrapper call of a capture runs here, and
     no plain version may) and again, with the table frozen, to measure.
     Returns the launches of each kernel in the measured drive, checked
     against the engine's forward passes and against the kernel nodes that
-    the drive's replays ran, and the drive's token streams by rid."""
+    the drive's replays ran, and the drive's token streams by rid.
+    ``sampled``: a third of the requests greedy, a third temperature-only,
+    a third top-k/top-p (``sampling_modes``); each drive starts from the
+    engine's seed key, so the two drives must give identical streams; the
+    profile is ``profile_modes``'s, and a chunked run's a mixed ``_full``
+    block graph against eager (``mixed_full_against_eager``)."""
+    from repro_torch.serving import prng
     from repro_torch.serving.engine import InferenceEngine
     eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
                           page_size=32, decode_block=8, kv_int8=kv_int8,
-                          prefill_chunk=prefill_chunk, device="cuda")
+                          prefill_chunk=prefill_chunk, seed=SEED, device="cuda")
     label = (f"{cfg.name} bf16 kv_int8={kv_int8}"
-             + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else ""))
+             + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else "")
+             + (" sampled" if sampled else ""))
     plain_calls.clear()
-    _, warm_wall = scheduler_drive(eng)
+    sched0, warm_wall = scheduler_drive(eng, sampled)
     # the building drive is where Python runs through the wrappers (warm-up
     # and capture of every entry); a replay runs none
     check(not plain_calls, f"{label}: plain versions called while the entries were "
@@ -1216,13 +1563,18 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
         kern.launches = 0
     plain_calls.clear()
     replays = {}
+    eng.key = prng.PRNGKey(SEED)       # the same seed, run again
     with counted_replays(eng, replays):
-        sched, wall = scheduler_drive(eng)
+        sched, wall = scheduler_drive(eng, sampled)
     launches = {name: kern.launches for name, kern in kernels.items()}
     plain = dict(plain_calls)
     check(set(eng.entry_points) == names and eng.graphs.captures == captures,
           f"{label}: entry table grew in the measured drive: "
           f"{sorted(set(eng.entry_points) - names)}")
+    check(in_order(sched) == in_order(sched0),
+          f"{label}: the same seed gave other streams in the measured drive than in "
+          f"the building drive: (request, first differing token) "
+          f"{first_differences(dict(enumerate(in_order(sched))), dict(enumerate(in_order(sched0))))}")
     groups = eng.prefill_groups - groups0
     steps = eng.steps - steps0
     chunks = eng.chunk_steps - chunks0
@@ -1247,10 +1599,16 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls):
           f"({sum(f.gen_tokens for f in fin) / wall:.1f} gen tok/s; the building drive "
           f"{warm_wall:.3f} s); peak pages {kv['peak_pages_in_use']} of {kv['n_pages']} "
           f"({kv['peak_kv_bytes_in_use'] / 2**20:.1f} MiB KV); peak device memory "
-          f"{peak_gib:.2f} GiB")
+          f"{peak_gib:.2f} GiB" + ("; the same seed twice: identical streams" if sampled
+                                   else ""))
     print(f"entries {label}: {len(names)} entries {sorted(names)}; {captures} captures in "
           f"{capture_ms:.0f} ms; graph pool {eng.graphs.pool_bytes / 2**20:.1f} MiB")
-    profile_block(eng, label)
+    if not sampled:
+        profile_block(eng, label)
+    elif prefill_chunk:
+        mixed_full_against_eager(eng, label)
+    else:
+        profile_modes(eng, label)
     check_graph_nodes(eng, label)
     print(f"entries {label} after the profile: {len(eng.entry_points)} entries, "
           f"{eng.graphs.captures} captures in {eng.graphs.capture_ms:.0f} ms, graph pool "
@@ -1707,14 +2065,17 @@ def build_model(arch):
 
 
 # the serve phase's models, one at a time: the paper's model first, with
-# every run (three serve runs, the gateway; a prefill-group profile), then
-# one bf16 serve run each of the others. granite is the one config with
-# GQA groups of 4
+# every run (five serve runs: bf16 KV, int8 KV, chunked prefill 48, and
+# sampled traffic with bf16 KV, whole-prompt and chunked; the gateway; a
+# prefill-group profile), then one bf16 serve run each of the others.
+# granite is the one config with GQA groups of 4. A run is (kv_int8,
+# prefill_chunk, sampled)
 SERVE_MODELS = (
-    ("llama2_13b", ((False, 0), (True, 0), (False, 48)), True),
-    ("llama2_7b", ((False, 0),), False),
-    ("minicpm_2b", ((False, 0),), False),
-    ("granite_3_2b", ((False, 0),), False),
+    ("llama2_13b", ((False, 0, False), (True, 0, False), (False, 48, False),
+                    (False, 0, True), (False, 48, True)), True),
+    ("llama2_7b", ((False, 0, False),), False),
+    ("minicpm_2b", ((False, 0, False),), False),
+    ("granite_3_2b", ((False, 0, False),), False),
 )
 
 
@@ -1748,17 +2109,17 @@ def serve_phase():
                     profile_prefill(cfg, params)
                     free_device_memory()
                 streams = {}
-                for kv_int8, chunk in runs:
-                    launches, streams[kv_int8, chunk] = serve(
-                        cfg, params, kv_int8, chunk, kernels, plain_calls)
+                for kv_int8, chunk, sampled in runs:
+                    launches, streams[kv_int8, chunk, sampled] = serve(
+                        cfg, params, kv_int8, chunk, kernels, plain_calls, sampled)
                     for name, n in launches.items():
                         totals[name] += n
                     free_device_memory()    # the run's engine and its graphs
                 if main_path:
                     t1 = time.monotonic()
                     for name, n in serve_prefix(cfg, params, kernels, plain_calls,
-                                                streams[False, 0],
-                                                streams[False, 48]).items():
+                                                streams[False, 0, False],
+                                                streams[False, 48, False]).items():
                         totals[name] += n
                     free_device_memory()
                     print(f"serve {cfg.name} prefix cache run: {time.monotonic() - t1:.1f} s")
@@ -1828,6 +2189,7 @@ def main():
     flash_rows = flash_phase()
     phase_memory("kernel", t0)
     t0 = time.monotonic()
+    sampler_phase()
     small_phase("llama2_13b")
     small_phase("granite_3_2b")
     phase_memory("small", t0)

@@ -269,10 +269,17 @@ def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0, clen, lane,
 
 
 def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,
-                       block_table, sample_fn, *, live=None):
-    """One paged decode step with sampling: ``sample_fn(logits (B, V)) ->
-    (B,)`` next tokens (the serving layer passes its sampler, so models/
-    stays independent of serving/)."""
+                       key, sampling, sample_fn, *, block_table, live=None,
+                       fold_ids=None):
+    """One paged decode step with sampling (``model.py:631-661``).
+
+    ``sampling`` is a tuple of per-row tensors ``(temperature (B,) f32,
+    top_k (B,) int, top_p (B,) f32)`` and ``sample_fn(logits, key,
+    *sampling, fold_ids=fold_ids) -> (B,)`` performs the draw (the serving
+    layer passes its sampler, so models/ stays independent of serving/).
+    ``fold_ids`` (B,) overrides the sampler's per-row fold, so a bucketed
+    caller folds by slot id. A greedy caller passes ``key=None`` and
+    ``sampling=()``. Returns the next tokens (B,)."""
     logits = forward(cfg, params, tokens, mode="decode", positions=positions,
                      cache=cache, block_table=block_table, live=live)
-    return sample_fn(logits)
+    return sample_fn(logits, key, *sampling, fold_ids=fold_ids)

@@ -1,12 +1,12 @@
 """Slot-based continuous-batching inference engine over a paged KV store
-(counterpart of ``repro/serving/engine.py``, paged greedy path).
+(counterpart of ``repro/serving/engine.py``, paged path).
 
 A fixed set of ``n_slots`` slots. Queued requests are admitted while their
 worst-case page reservation fits the page budget. On an idle engine they
 are prefilled as whole prompts in batches grouped by padded length (the
 prompt K/V is written straight into pages; prefill attention runs the
 hand-written CUDA flash kernel on the card). Admitted requests are then
-decoded in blocks of up to ``decode_block`` greedy steps. Within a block
+decoded in blocks of up to ``decode_block`` steps. Within a block
 every step runs on the device with no host round trip: per-lane
 positions, last tokens, generation counters and the live mask are device
 tensors, and the finish rule (EOS, token budget, KV cap) is applied
@@ -39,21 +39,34 @@ makes one) first copies the page (``_copy_page``) onto a fresh one.
 ``FinishedRequest.cached_tokens`` carries the skipped span to the
 gateway's Eq. 1 credit.
 
+**Sampling** (``SamplingParams`` per request: greedy, temperature,
+top-k/top-p): greedy and sampled requests decode in one batch. The host
+picks the block's sampler from the bucket's rows (``greedy``: argmax, no
+sampler; ``temp``: temperature only, no sort; ``full``: top-k/top-p too),
+and the draws follow jax's threefry key stream (``serving/prng.py``) as
+the reference's do: the host key is split once per prefill group and once
+per block, greedy ones included; inside a block each step splits the
+carried key, and a row folds by its slot id in a bucket smaller than
+``n_slots`` (by lane position otherwise), so a seeded run draws the
+reference's tokens.
+
 **Entry points** (``entry_points``, the reference's table of compiled
-programs, under its names): a decode block is ``decode_bs{N}_k{K}_greedy``,
-a block that also streams chunks ``mixed_bs{N}_k{K}_c{C}_greedy``, a
-whole-prompt prefill group ``prefill_bs{N}_p{P}``. Lanes are padded to a
-power-of-two bucket of rows and prefill groups to a power-of-two batch, as
-in the reference, so few shapes exist. No entry branches on a host value:
-every per-dispatch value (tokens, positions, counters, block-table rows,
-chunk arrays, the chunk lane) is an input tensor. On a CUDA engine each
-entry is a CUDA graph, captured at its first use and replayed after
+programs, under its names): a decode block is
+``decode_bs{N}_k{K}_{greedy|temp|full}``, a block that also streams chunks
+``mixed_bs{N}_k{K}_c{C}_{mode}``, a whole-prompt prefill group
+``prefill_bs{N}_p{P}`` (its first tokens drawn inside). Lanes are padded
+to a power-of-two bucket of rows and prefill groups to a power-of-two
+batch, as in the reference, so few shapes exist. No entry branches on a
+host value: every per-dispatch value (tokens, positions, counters,
+block-table rows, chunk arrays, the chunk lane, sampling parameters and
+the block's key) is an input tensor. On a CUDA engine each entry is a
+CUDA graph, captured at its first use and replayed after
 (``serving/graphs.py``); on a CPU engine it runs eagerly.
 
 Host bookkeeping (admission, page growth, chunk schedule, finish order,
 block tables) follows the reference line for line, so on the same traffic
-the port maps the same pages and emits the same greedy tokens. Still to
-port (ROADMAP.md): the dense layout, sampled modes, tensor parallelism
+the port maps the same pages and emits the same tokens, greedy or
+seeded. Still to port (ROADMAP.md): the dense layout, tensor parallelism
 and fault injection into lanes.
 """
 from __future__ import annotations
@@ -67,9 +80,12 @@ import torch
 
 from repro_torch.models import model as MD
 from repro_torch.models.common import ModelConfig, resolve_device
+from repro_torch.serving import prng
 from repro_torch.serving.graphs import Entry, GraphPool
 from repro_torch.serving.kv_cache import PageAllocator
-from repro_torch.serving.sampler import SamplingParams, greedy_sample
+from repro_torch.serving.sampler import (SamplingParams, greedy_sample,
+                                         sample_logits_batched,
+                                         sample_temperature_only)
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 
@@ -155,10 +171,10 @@ class InferenceEngine:
                  prefill_chunk: int = 0, prefix_cache: bool = False,
                  tp_degree: int = 1, device="cuda"):
         """Same signature as the reference engine plus ``device``.
-        ``seed`` is accepted for that parity; greedy decoding draws no
-        random numbers. ``params`` must already live on ``device``; the
-        page store is allocated once and never replaced, since every
-        captured entry writes it in place."""
+        ``seed`` makes the host PRNG key (``prng.PRNGKey``, on the CPU)
+        from which every sampled token is drawn. ``params`` must already
+        live on ``device``; the page store is allocated once and never
+        replaced, since every captured entry writes it in place."""
         for flag, on, item in (
                 ("paged=False", not paged, "dense KV layout"),
                 ("tp_degree > 1", tp_degree > 1, "tensor-parallel decode")):
@@ -206,6 +222,9 @@ class InferenceEngine:
         self._committed = 0
         self.cache = MD.init_paged_cache(cfg, n_pages, page_size,
                                          device=self.device)
+        # the host key: split once per prefill group and once per block
+        # (never read from the card), as the reference's self.key
+        self.key = prng.PRNGKey(seed)
         self.slots: List[Optional[RequestState]] = [None] * n_slots
         # host mirrors of the per-lane decode state (scheduling decisions;
         # gathered into the entry's staging buffer per block, refreshed from
@@ -215,6 +234,9 @@ class InferenceEngine:
         self.live = np.zeros(n_slots, bool)
         self.gen_count = np.zeros(n_slots, np.int64)
         self.max_new = np.ones(n_slots, np.int64)
+        self.temp = np.zeros(n_slots, np.float32)
+        self.top_k = np.zeros(n_slots, np.int64)
+        self.top_p = np.ones(n_slots, np.float32)
         self.queue: List[RequestState] = []
         self.finished: List[FinishedRequest] = []
         # quarantined lanes; the port has no in-block finiteness verdict
@@ -251,11 +273,6 @@ class InferenceEngine:
                priority: int = 1, t_submit: Optional[float] = None,
                retries: int = 0, last_fault: str = "") -> int:
         sampling = sampling if sampling is not None else SamplingParams()
-        if sampling.temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0): the port decodes "
-                "greedily so far (ROADMAP.md, modules still to port: "
-                "sampled modes)")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         if max_new_tokens + 1 >= self.max_len:
@@ -385,16 +402,26 @@ class InferenceEngine:
         lengths = np.ones(npad, np.int64)
         page_ids = np.full((npad, plen), self.pages.n_pages, np.int64)
         offs = np.zeros((npad, plen), np.int64)
+        temps = np.zeros(npad, np.float32)
+        topks = np.zeros(npad, np.int64)
+        topps = np.ones(npad, np.float32)
         for b, (slot, st, ids) in enumerate(grp):
             toks[b, : len(ids)] = ids
             lengths[b] = len(ids)
+            temps[b] = st.sampling.temperature
+            topks[b] = st.sampling.top_k
+            topps[b] = st.sampling.top_p
             self.pages.ensure_capacity(slot, len(ids))
             self.pages.lengths[slot] = len(ids)
             t = np.arange(len(ids))
             page_ids[b, : len(ids)] = self.pages.block_table[slot, t // ps]
             offs[b, : len(ids)] = t % ps
         prefill = self._prefill_for(npad, plen)
-        out = prefill(toks=toks, lengths=lengths, page_ids=page_ids, offs=offs)
+        # the group draws its first tokens with its own split of the host
+        # key, folded by row position in the group (ref engine.py:565)
+        self.key, sk = prng.split(self.key)
+        out = prefill(toks=toks, lengths=lengths, page_ids=page_ids, offs=offs,
+                      temp=temps, topk=topks, topp=topps, key=sk.numpy())
         if self.prefix_cache:
             # index the full prompt pages the entry just wrote, so later
             # requests sharing this prefix adopt instead of recompute
@@ -415,6 +442,7 @@ class InferenceEngine:
             self.last_token[slot] = first
             self.gen_count[slot] = 1
             self.max_new[slot] = st.max_new_tokens
+            self._set_sampling(slot, st.sampling)
             alive = (first != self.eos_id
                      and st.max_new_tokens > 1
                      and st.prompt_len + 1 < self.max_len - 1)
@@ -422,23 +450,35 @@ class InferenceEngine:
             if not alive:
                 self._finish(slot)
 
+    def _set_sampling(self, slot: int, sampling: SamplingParams) -> None:
+        """The slot's sampling mirrors, gathered per bucket like ``last``."""
+        self.temp[slot] = sampling.temperature
+        self.top_k[slot] = sampling.top_k
+        self.top_p[slot] = sampling.top_p
+
     def _prefill_for(self, npad: int, plen: int) -> Entry:
         """The entry ``prefill_bs{npad}_p{plen}``: whole-prompt prefill of
         ``npad`` rows padded to ``plen`` tokens, writing each row's K/V
-        through its page ids, to each row's greedy first token (npad,)."""
+        through its page ids, to each row's first token (npad,), drawn by
+        ``sample_logits_batched`` with the group's key and each row's
+        ``temp``, ``topk`` and ``topp`` (argmax where temp is 0, the pad
+        rows' value)."""
         name = f"prefill_bs{npad}_p{plen}"
         if name not in self.entry_points:
             cfg, params, cache = self.cfg, self.params, self.cache
 
-            def prefill(toks, lengths, page_ids, offs):
+            def prefill(toks, lengths, page_ids, offs, temp, topk, topp, key):
                 logits = MD.prefill_last(cfg, params, toks, lengths, cache=cache,
                                          prompt_pages=(page_ids, offs))
-                return greedy_sample(logits)
+                return sample_logits_batched(logits, key, temp, topk, topp)
 
             self.entry_points[name] = Entry(name, prefill, {
                 "toks": ((npad, plen), 0), "lengths": ((npad,), 1),
                 "page_ids": ((npad, plen), self.pages.n_pages),
-                "offs": ((npad, plen), 0)}, self.graphs)
+                "offs": ((npad, plen), 0),
+                "temp": ((npad,), 0.0, torch.float32), "topk": ((npad,), 0),
+                "topp": ((npad,), 1.0, torch.float32), "key": ((2,), 0)},
+                self.graphs)
         return self.entry_points[name]
 
     def _admit_chunk_task(self, slot: int) -> None:
@@ -490,6 +530,7 @@ class InferenceEngine:
         self.live[slot] = False
         self.gen_count[slot] = 0
         self.max_new[slot] = st.max_new_tokens
+        self._set_sampling(slot, st.sampling)
         # a prefix engine admits hits here with prefill_chunk == 0: it
         # streams page_size-token chunks
         self._task = _ChunkTask(slot=slot, ids=ids, plen=len(ids),
@@ -524,6 +565,11 @@ class InferenceEngine:
         self.pages.release(slot)
         self._committed -= st.reserved_pages
 
+    # the block's sampler by mode (ref engine.py:702-704)
+    _SAMPLE_FNS = {"greedy": greedy_sample,
+                   "temp": sample_temperature_only,
+                   "full": sample_logits_batched}
+
     def _fused_for(self, k: int, mode: str, bs: int,
                    chunk_c: int) -> Tuple[Entry, bool]:
         """The entry of a k-step block over a ``bs``-row bucket, optionally
@@ -539,26 +585,50 @@ class InferenceEngine:
         last chunk), and on the final chunk samples the request's first
         token, flips the lane live and emits the token in-band. Returns
         (2k + 1, bs) int64: the tokens of each step, which of them were
-        emitted, and the live mask after the block. Only ``greedy`` exists
-        so far."""
+        emitted, and the live mask after the block.
+
+        ``mode`` is the host's choice of sampler over the bucket's rows:
+        ``greedy`` has no sampler and no sampling input; ``temp`` and
+        ``full`` add each row's ``temp``, ``topk``, ``topp``, its slot id
+        ``rows`` (pad rows n_slots) and the block's ``key``. Each step
+        splits the carried key in two (three in a mixed block: the third
+        draws the chunk lane's first token, folded by its slot id); the
+        decode rows fold by slot id when the bucket is smaller than
+        ``n_slots``, by lane position otherwise."""
         name = (f"decode_bs{bs}_k{k}_{mode}" if chunk_c == 0
                 else f"mixed_bs{bs}_k{k}_c{chunk_c}_{mode}")
         warm = name in self.entry_points
         if not warm:
             cfg, params, cache = self.cfg, self.params, self.cache
             eos_id, max_len = self.eos_id, self.max_len
+            sample_fn = self._SAMPLE_FNS[mode]
+            sampled = mode != "greedy"
+            bucketed = bs < self.n_slots
             has_chunk = chunk_c > 0
 
             def fused(last, pos, gc, max_new, live, bt, ctoks=None, cpos0=None,
-                      clen=None, cfin=None, lane=None):
+                      clen=None, cfin=None, lane=None, temp=None, topk=None,
+                      topp=None, rows=None, key=None):
                 live, bt = live != 0, bt.to(torch.int32)
+                sampling = (temp, topk, topp) if sampled else ()
+                fold = rows if sampled and bucketed else None
+                sk = ck = None
                 if has_chunk:
                     at_lane = torch.arange(bs, device=live.device) == lane
-                    lane_max_new = max_new.index_select(0, lane.reshape(1))
+                    at = lane.reshape(1)
+                    lane_max_new = max_new.index_select(0, at)
+                    lane_sampling = tuple(x.index_select(0, at) for x in sampling)
+                    lane_fold = rows.index_select(0, at) if sampled else None
                 toks, emitted = [], []
                 for s in range(k):
-                    nxt = MD.decode_sample_step(cfg, params, last[:, None], pos,
-                                                cache, bt, greedy_sample, live=live)
+                    if sampled:
+                        keys = prng.split(key, 3 if has_chunk else 2)
+                        key, sk = keys[0], keys[1]
+                        if has_chunk:
+                            ck = keys[2]
+                    nxt = MD.decode_sample_step(
+                        cfg, params, last[:, None], pos, cache, sk, sampling,
+                        sample_fn, block_table=bt, live=live, fold_ids=fold)
                     nxt = torch.where(live, nxt, last)
                     pos2 = torch.where(live, pos + 1, pos)
                     gc2 = torch.where(live, gc + 1, gc)
@@ -574,7 +644,8 @@ class InferenceEngine:
                             block_table=bt)
                         # the first token and the lane's flip to live stay
                         # on the device; they reach the host with the block
-                        first = greedy_sample(logits[None])
+                        first = sample_fn(logits[None], ck, *lane_sampling,
+                                          fold_ids=lane_fold)
                         plen = cpos0[s] + clen[s]
                         alive = ((first != eos_id) & (lane_max_new > 1)
                                  & (plen + 1 < max_len - 1))
@@ -597,6 +668,10 @@ class InferenceEngine:
             if has_chunk:
                 layout.update(ctoks=((k, chunk_c), 0), cpos0=((k,), 0),
                               clen=((k,), 0), cfin=((k,), 0), lane=((), 0))
+            if sampled:
+                layout.update(temp=((bs,), 0.0, torch.float32), topk=((bs,), 0),
+                              topp=((bs,), 1.0, torch.float32),
+                              rows=((bs,), self.n_slots), key=((2,), 0))
             self.entry_points[name] = Entry(name, fused, layout, self.graphs)
         return self.entry_points[name], warm
 
@@ -616,7 +691,7 @@ class InferenceEngine:
     def step(self) -> int:
         """One continuous-batching dispatch: refill free slots (chunk-task
         admission when lanes are live, grouped whole-prompt prefill when
-        idle), then run up to ``decode_block`` greedy steps, each decoding
+        idle), then run up to ``decode_block`` steps, each decoding
         every live lane and streaming at most one prompt chunk, in the entry
         point bucketed to live occupancy, with one device-to-host copy at
         the end. Returns tokens emitted (0 if idle)."""
@@ -665,6 +740,18 @@ class InferenceEngine:
                     nxt_p += n
                     self.chunk_steps += 1
             finishing = nxt_p == task.plen
+        # greedy rows (temp <= 0) draw by argmax and ignore top-k/top-p, so
+        # only the sampled rows' params pick the sampler; the chunk lane
+        # counts, since its first token is drawn in the block
+        consider = np.zeros(self.n_slots, bool)
+        consider[rows] = True
+        drawn = consider & (self.temp > 0)
+        if not drawn.any():
+            mode = "greedy"
+        elif np.any((self.top_k[drawn] > 0) | (self.top_p[drawn] < 1.0)):
+            mode = "full"
+        else:
+            mode = "temp"
         if self.prefix_cache:
             # copy-on-write before this block's appends: a write landing in
             # a shared or adopted page remaps the lane onto a fresh page and
@@ -703,18 +790,26 @@ class InferenceEngine:
         bt = np.full((bs, self.pages.max_pages), -1, np.int64)
         bt[real] = self.pages.block_table[rows_full[real]]
 
-        def gath(a, fill):
-            out = np.full(bs, fill, np.int64)
+        def gath(a, fill, dtype=np.int64):
+            out = np.full(bs, fill, dtype)
             out[real] = a[rows_full[real]]
             return out
 
+        # every block advances the host key, greedy ones too, so a greedy
+        # neighbour never shifts a later sampled token (ref engine.py:959)
+        self.key, bk = prng.split(self.key)
         inputs = dict(last=gath(self.last_token, 0), pos=gath(self.positions, 0),
                       gc=gath(self.gen_count, 0), max_new=gath(self.max_new, 1),
                       live=gath(self.live, 0), bt=bt)
         if task is not None:
             inputs.update(ctoks=ctoks, cpos0=cpos0, clen=clen, cfin=cfin,
                           lane=int(np.searchsorted(rows_full, task.slot)))
-        fn, warm = self._fused_for(k, "greedy", bs, chunk_c)
+        if mode != "greedy":
+            inputs.update(temp=gath(self.temp, 0.0, np.float32),
+                          topk=gath(self.top_k, 0),
+                          topp=gath(self.top_p, 1.0, np.float32),
+                          rows=rows_full, key=bk.numpy())
+        fn, warm = self._fused_for(k, mode, bs, chunk_c)
         t_dec = time.monotonic()
         out = fn(**inputs)
         # the single device-to-host copy for this block of <= k*bs tokens

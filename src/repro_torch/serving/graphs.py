@@ -2,11 +2,15 @@
 (no counterpart file in the reference, whose engine jits its table).
 
 An ``Entry`` is one program of the engine's table (``decode_bs{N}_k{K}_greedy``,
-``mixed_bs{N}_k{K}_c{C}_greedy``, ``prefill_bs{N}_p{P}``): a callable
-``fn(**inputs)`` over integer inputs of fixed shapes that returns one tensor.
+``mixed_bs{N}_k{K}_c{C}_full``, ``prefill_bs{N}_p{P}``): a callable
+``fn(**inputs)`` over inputs of fixed shapes that returns one tensor.
 The inputs are views of one static int64 buffer on the engine's device. A
 dispatch writes its values into a staging buffer of the same layout (pinned
 host memory on a CUDA engine) and pushes them with one host-to-device copy.
+An integer input (token ids, positions, a PRNG key's two uint32 words) is
+staged as its int64 value; a float32 input (a sampler's temperature or
+top-p) as its int32 bit pattern, which the entry views back as float32 on
+the device, inside the graph.
 On a CUDA engine the entry captures ``fn`` as a CUDA graph when it is built
 and replays the graph on every dispatch; on a CPU engine it runs ``fn`` as
 it is. The caller reads the output back (a sync) before it stages the same
@@ -16,6 +20,7 @@ Capture executes ``fn`` for real (warm-up runs on a side stream, then the
 captured run), and the page store is written in place. So both run on the
 inputs' *dead* values: every lane dead, every table entry -1, chunk length
 0, prompt pages at the trash page. Every write then lands in the trash page.
+A sampler's dead inputs are temperature 0 (greedy rows) and key 0.
 
 The kernel wrappers count their calls in Python, which a replay does not
 run. Capture records how many calls of each wrapper one run makes, every
@@ -27,8 +32,9 @@ from __future__ import annotations
 import gc
 import math
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
@@ -65,22 +71,29 @@ class GraphPool:
 
 class Entry:
     """One entry point: ``fn`` over static inputs laid out by ``layout``
-    ({input name: (shape, dead value)}), captured into ``pool`` on a CUDA
-    engine. Calling it with every input's values (numpy arrays or ints)
-    stages them and runs; ``fn(**inputs)`` is the eager callable."""
+    ({input name: (shape, dead value[, dtype])}, dtype ``torch.int64``, the
+    default, or ``torch.float32``), captured into ``pool`` on a CUDA
+    engine. Calling it with every input's values (numpy arrays, tensors or
+    numbers) stages them and runs; ``eager()`` runs ``fn`` on the staged
+    inputs without the graph."""
 
     def __init__(self, name: str, fn: Callable,
-                 layout: Dict[str, Tuple[tuple, int]], pool: GraphPool):
+                 layout: Dict[str, tuple], pool: GraphPool):
         self.name, self.fn = name, fn
         dev = pool.device
-        sizes = [math.prod(shape) for shape, _ in layout.values()]
+        sizes = [math.prod(spec[0]) for spec in layout.values()]
         self.stage = torch.zeros(sum(sizes), dtype=torch.int64,
                                  pin_memory=dev.type == "cuda")
         self.buf = torch.zeros(sum(sizes), dtype=torch.int64, device=dev)
         flat = self.stage.numpy()
         self.host, self.inputs, self.dead = {}, {}, {}
+        self.floats = set()        # float32 inputs, staged as int32 bits
         off = 0
-        for (key, (shape, dead)), n in zip(layout.items(), sizes):
+        for (key, (shape, dead, *dtype)), n in zip(layout.items(), sizes):
+            if dtype and dtype[0] == torch.float32:
+                self.floats.add(key)
+            elif dtype and dtype[0] != torch.int64:
+                raise ValueError(f"{name}: input {key} of dtype {dtype[0]}")
             self.host[key] = flat[off:off + n].reshape(shape)
             self.inputs[key] = self.buf[off:off + n].view(shape)
             self.dead[key] = dead
@@ -98,6 +111,8 @@ class Entry:
             raise ValueError(f"{self.name}: inputs {sorted(values)} != "
                              f"{sorted(self.host)}")
         for key, v in values.items():
+            if key in self.floats:
+                v = np.asarray(v, np.float32).view(np.int32)
             self.host[key][...] = v
         self.buf.copy_(self.stage, non_blocking=True)
 
@@ -105,12 +120,19 @@ class Entry:
         """Stage the inputs that write only the trash page (capture's)."""
         self.stage_inputs(**self.dead)
 
+    def eager(self) -> torch.Tensor:
+        """Call ``fn`` on the static inputs as they stand, each float32 input
+        viewed back from its bit pattern (on the device: no host read)."""
+        return self.fn(**{key: x.to(torch.int32).view(torch.float32)
+                          if key in self.floats else x
+                          for key, x in self.inputs.items()})
+
     def run(self) -> torch.Tensor:
         """Run on the staged inputs: replay the graph on the card (and
         advance the wrappers' counters by one run's calls), or call ``fn``
         on the CPU. Returns the output (the graph's static output tensor)."""
         if self.graph is None:
-            return self.fn(**self.inputs)
+            return self.eager()
         self.graph.replay()
         for wrapper, n in zip(COUNTED, self.per_run):
             wrapper.launches += n
@@ -129,7 +151,7 @@ class Entry:
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             for _ in range(WARMUP_RUNS):
-                self.fn(**self.inputs)
+                self.eager()
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         mid = [w.launches for w in COUNTED]
@@ -140,7 +162,7 @@ class Entry:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool.handle):
-                self.out = self.fn(**self.inputs)
+                self.out = self.eager()
         finally:
             if collecting:
                 gc.enable()

@@ -15,7 +15,6 @@ from repro_torch.configs import reduced
 from repro_torch.models import model as MD
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.kv_cache import PageAllocator
-from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 # prompt lengths straddle the 16/32/64 prefill buckets; budgets differ per
@@ -117,11 +116,9 @@ def test_prefix_cache_is_served(models, kwargs):
     assert eng.kv_stats()["prefill_tokens_cached"] == 0
 
 
-def test_sampled_request_and_lane_poison_raise(models):
+def test_lane_poison_raises(models):
     _, cfg, _, params = models
     eng = InferenceEngine(cfg, params, paged=True, page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="greedily"):
-        eng.submit([1, 2, 3], sampling=SamplingParams(temperature=0.7))
     with pytest.raises(NotImplementedError, match="poison_lane"):
         eng.poison_lane(0)
 

@@ -15,10 +15,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro.configs import reduced as jreduced
 from repro.models import model as JMD
 from repro.serving import InferenceEngine as JEngine
+from repro.serving.sampler import SamplingParams as JSamplingParams
 from repro_torch.configs import reduced
 from repro_torch.models import model as MD
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.graphs import Entry, GraphPool
+from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 # the traffic of test_torch_engine.py: prompt lengths straddle the 16/32/64
@@ -26,6 +28,11 @@ from repro_torch.serving.tokenizer import ByteTokenizer
 TRAFFIC = [("hello world", 24), ("the quick brown fox jumps over it", 12),
            ("a", 30), ("carbon aware serving of llms " * 2, 20),
            ("xyz", 8), ("generation directives", 16)]
+# the same prompts and budgets with sampled requests among them: top-k/top-p,
+# temperature only and greedy (the last two requests are greedy, so greedy
+# blocks run once the sampled requests finish)
+SAMPLING = [(0.9, 50, 0.95), (0.8, 0, 1.0), (0.0, 0, 1.0), (1.1, 5, 0.9),
+            (0.0, 0, 1.0), (0.0, 0, 1.0)]
 # fp32 on both sides; the frameworks sum in another order (test_torch_model.py)
 ATOL = 1e-4
 PAGE = 16
@@ -58,12 +65,16 @@ def _record_tables(eng):
     return seen
 
 
-def _drive(eng, traffic=TRAFFIC):
-    """Serve ``traffic`` to completion. Returns, for each block dispatch,
-    (last_decode_s == 0.0, the dispatch built a decode or mixed entry)."""
+def _drive(eng, traffic=TRAFFIC, sampling=None):
+    """Serve ``traffic`` to completion, request i with ``sampling[i]``
+    ((temperature, top_k, top_p); greedy when None). Returns, for each
+    block dispatch, (last_decode_s == 0.0, the dispatch built a decode or
+    mixed entry)."""
     tok = ByteTokenizer()
-    for text, n in traffic:
-        eng.submit(tok.encode(text, bos=True), max_new_tokens=n)
+    cls = JSamplingParams if isinstance(eng, JEngine) else SamplingParams
+    for i, (text, n) in enumerate(traffic):
+        eng.submit(tok.encode(text, bos=True), max_new_tokens=n,
+                   sampling=cls(*sampling[i]) if sampling else None)
     flags = []
     while eng.queue or any(s is not None for s in eng.slots):
         syncs, names = eng.decode_syncs, set(eng.entry_points)
@@ -97,19 +108,24 @@ def _unchanged_but_trash(cache, snap):
 @pytest.mark.parametrize("decode_block", [1, 4])
 @pytest.mark.parametrize("chunk", [0, 8])
 def test_entry_names_match_reference(models, chunk, decode_block, kv_int8):
-    """The same traffic builds the same table, under the same names, in
-    both engines; tokens, page ledgers and counts stay equal."""
+    """The same traffic, greedy and sampled requests mixed, builds the same
+    table, under the same names (the block's sampler in each decode and
+    mixed name), in both engines; tokens, page ledgers and counts stay
+    equal."""
     jcfg, cfg, jp, params = models
     kw = dict(n_slots=4, max_len=96, paged=True, page_size=PAGE, n_pages=12,
-              decode_block=decode_block, kv_int8=kv_int8, prefill_chunk=chunk)
+              decode_block=decode_block, kv_int8=kv_int8, prefill_chunk=chunk, seed=7)
     ref = JEngine(jcfg, jp, **kw)
     port = InferenceEngine(cfg, params, device="cpu", **kw)
     tables = [_record_tables(e) for e in (ref, port)]
-    want_flags, got_flags = _drive(ref), _drive(port)
+    want_flags = _drive(ref, sampling=SAMPLING)
+    got_flags = _drive(port, sampling=SAMPLING)
     assert set(port.entry_points) == set(ref.entry_points)
-    names = set(port.entry_points)
-    assert any(n.startswith("prefill_bs") for n in names)
-    assert any(n.startswith("mixed_bs") for n in names) == (chunk > 0)
+    table = sorted(port.entry_points)
+    assert any(n.startswith("prefill_bs") for n in table)
+    assert any(n.startswith("mixed_bs") for n in table) == (chunk > 0)
+    blocks = [n for n in table if n.startswith(("decode_", "mixed_"))]
+    assert any(n.endswith("_full") for n in blocks), blocks
     assert {f.rid: f.token_ids for f in port.finished} == {
         f.rid: f.token_ids for f in ref.finished}
     assert [f.rid for f in port.finished] == [f.rid for f in ref.finished]
@@ -246,16 +262,21 @@ def _populated(models, kv_int8):
     return eng
 
 
-def _entry(eng, kind):
-    if kind == "decode":
-        return eng._fused_for(4, "greedy", 4, 0)[0]
-    if kind == "mixed":
-        return eng._fused_for(4, "greedy", 4, 8)[0]
-    return eng._prefill_for(4, 32)
+# entry kinds: (block mode, chunk length) of a 4-step block over 4 rows, or
+# a prefill group of 4 x 32
+KINDS = {"decode": ("greedy", 0), "mixed": ("greedy", 8), "temp": ("temp", 0),
+         "full": ("full", 0), "mixed_full": ("full", 8), "prefill": None}
+
+
+def _entry(eng, kind, bs=4):
+    if KINDS[kind] is None:
+        return eng._prefill_for(4, 32)
+    mode, chunk = KINDS[kind]
+    return eng._fused_for(4, mode, bs, chunk)[0]
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
-@pytest.mark.parametrize("kind", ["decode", "mixed", "prefill"])
+@pytest.mark.parametrize("kind", list(KINDS))
 def test_capture_inputs_write_only_the_trash_page(models, kind, kv_int8):
     """The dead inputs that warm-up and capture run on (every lane dead,
     every table entry -1, chunk length 0, prompt pages at the trash page)
@@ -289,19 +310,33 @@ def _bool_indexed(name, args):
                     for t in args[1] if t is not None))
 
 
-@pytest.mark.parametrize("kind", ["decode", "mixed", "prefill"])
+@pytest.mark.parametrize("kind", list(KINDS))
 def test_entry_bodies_read_no_host_value(models, kind):
     """An entry's callable runs no op that reads a device value back to the
     host, and indexes by no boolean mask, so the card can capture it (the
-    CPU runs the same callable; only the kernels differ)."""
+    CPU runs the same callable; only the kernels differ). The sampled
+    bodies (``temp``, ``full``, the prefill group's draw) run on live
+    sampled rows and a real key, in a bucket smaller than the slots (rows
+    fold by slot id)."""
     eng = _populated(models, False)
-    entry = _entry(eng, kind)
+    sampled = kind != "prefill" and KINDS[kind][0] != "greedy"
+    entry = _entry(eng, kind, bs=2 if sampled else 4)
     entry.stage_dead()
-    if kind == "mixed":
+    values = dict(entry.dead)
+    if kind in ("mixed", "mixed_full"):
         # one real chunk of the lane's prompt, so the chunk pass writes
-        entry.stage_inputs(**dict(entry.dead, live=np.array([1, 1, 0, 0]),
-                                  clen=np.array([8, 3, 0, 0]), lane=1,
-                                  cfin=np.array([0, 1, 0, 0])))
+        values.update(live=np.array([1, 1, 0, 0][:entry.host["live"].shape[0]]),
+                      clen=np.array([8, 3, 0, 0]), lane=1, cfin=np.array([0, 1, 0, 0]))
+    elif kind in ("temp", "full"):
+        values["live"] = np.array([1, 1])
+    if "key" in values:
+        n = entry.host["temp"].shape[0]
+        values.update(temp=np.linspace(0.5, 1.2, n, dtype=np.float32),
+                      topk=np.arange(n) * 20, topp=np.full(n, 0.9, np.float32),
+                      key=np.array([12345, 678]))
+        if "rows" in values:
+            values["rows"] = np.array([2, 0])
+    entry.stage_inputs(**values)
     with _Ops() as ops:
         entry.run()
     names = {name for name, _ in ops.seen}
@@ -311,21 +346,33 @@ def test_entry_bodies_read_no_host_value(models, kind):
 
 def test_entry_stages_every_input_through_one_buffer():
     """Inputs are views of one static buffer, filled from one staging
-    buffer; a dispatch must give every input."""
+    buffer; a dispatch must give every input. A float32 input (a sampler's
+    temperature) is staged as its int32 bit pattern and reaches ``fn`` as
+    the same float32 values; a key's two uint32 words as int64 values."""
     calls = []
 
-    def fn(a, b):
-        calls.append((a.clone(), b.clone()))
+    def fn(a, b, t, key):
+        calls.append((a.clone(), b.clone(), t.clone(), key.clone()))
         return a.sum() + b.sum()
 
-    entry = Entry("test", fn, {"a": ((2, 3), -1), "b": ((), 7)},
+    entry = Entry("test", fn, {"a": ((2, 3), -1), "b": ((), 7),
+                               "t": ((3,), 1.0, torch.float32), "key": ((2,), 0)},
                   GraphPool(torch.device("cpu")))
-    assert entry.buf.numel() == 7 and entry.stage.numel() == 7
+    assert entry.buf.numel() == 12 and entry.stage.numel() == 12
+    assert entry.buf.dtype == entry.stage.dtype == torch.int64
     assert all(t.data_ptr() >= entry.buf.data_ptr() for t in entry.inputs.values())
     entry.stage_dead()
-    assert entry.buf.tolist() == [-1] * 6 + [7]
-    out = entry(a=np.arange(6).reshape(2, 3), b=4)
+    one = int(np.float32(1.0).view(np.int32))
+    assert entry.buf.tolist() == [-1] * 6 + [7] + [one] * 3 + [0, 0]
+    temps = np.array([0.0, 0.9, -2.5e-7], np.float32)
+    key = np.array([0xFFFFFFFF, 0x80000000])
+    out = entry(a=np.arange(6).reshape(2, 3), b=4, t=temps, key=key)
     assert out.item() == 19 and calls[-1][1].item() == 4
+    t = calls[-1][2]
+    assert t.dtype == torch.float32 and np.array_equal(t.numpy(), temps)
+    assert calls[-1][3].tolist() == key.tolist()
     assert entry.graph is None and entry.per_run == (0, 0, 0)
     with pytest.raises(ValueError, match="inputs"):
         entry(a=np.zeros((2, 3)))
+    with pytest.raises(ValueError, match="dtype"):
+        Entry("test", fn, {"a": ((2,), 0, torch.int32)}, GraphPool(torch.device("cpu")))

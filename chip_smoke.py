@@ -45,7 +45,14 @@ Phases; any failure raises and the script exits non-zero:
                (first tokens drawn in the mixed entry), with the prefix
                cache, and greedy and temperature-only alone (chunked, so
                decode and mixed _temp entries run); card and CPU give the
-               same tokens, tables and entries.
+               same tokens, tables and entries. Then the dense layout (no
+               ``paged``, the reference's default engine; 4 slots of 128
+               rows): fp32 and int8 KV, whole-prompt and chunked (chunk 8),
+               blocks in buckets under the 4 slots, and one sampled
+               chunked drive; card and CPU give the same tokens and entry
+               names, and the card's store holds the CPU's kpos on every
+               slot row and K/V within 1e-5 where kpos is valid (int8:
+               codes at most one apart, on under 1e-3 of them).
   6. serve   - the main path: full-width llama2-13b, the paper's model, in
                bf16 (random weights from a seed; each model's weights are
                freed before the next is drawn) served through
@@ -54,13 +61,25 @@ Phases; any failure raises and the script exits non-zero:
                captured at first use and replayed after -> CUDA kernels
                (RMSNorm in every forward pass, flash attention in every
                whole-prompt prefill group, paged attention in every decode
-               step), three times: bf16 KV, int8 KV, and bf16 KV with
+               step on a paged engine), three times: bf16 KV, int8 KV, and
+               bf16 KV with
                chunked prefill (chunk 48, so chunks straddle the 32-token
                pages); then twice more with sampled traffic (a third of the
                requests greedy, a third temperature 0.8, a third the
                reference bench's temperature 0.9 / top_k 50 / top_p 0.95),
-               bf16 KV whole-prompt and chunked 48; then one bf16 run each
-               of full-width llama2-7b,
+               bf16 KV whole-prompt and chunked 48; then twice on a dense
+               engine (the reference's default layout; 8 slots of 1024
+               rows), bf16 KV whole-prompt and chunked 48, where paged
+               attention must launch 0 times (dense decode attention is the
+               reference's plain _sdpa), a bucketed block (3 lanes of 8)
+               and, chunked, a mixed block run graph against eager, the
+               share of streams equal to the paged run's printed (not
+               gated: bf16 _sdpa rounds scores, the paged kernel does not),
+               one middle layer's decode attention on the served store
+               held to an fp32 computation of it (gated), and the dense
+               attention of a step timed alone against its
+               bound (every K/V byte of 8 rows of 1024 over 3.35 TB/s);
+               then one bf16 run each of full-width llama2-7b,
                minicpm-2b and granite-3-2b (GQA groups of 4), each after a
                full-width forward pass (finite logits of the vocabulary's
                width). Each run drives its traffic once to build the entry
@@ -140,9 +159,12 @@ Phases; any failure raises and the script exits non-zero:
                after the serve phase's weights are freed, with
                --prefix-cache; three hours of 12 requests over CA and TX at
                full width, one line an hour, 0 rejected, a solved plan in
-               the last hour, prefill served from cached pages. Its launches are zeroed before and read after,
-               and held to its engines' forward passes and to the kernel
-               nodes its replays ran; no plain version may run.
+               the last hour, prefill served from cached pages; then once
+               more without --paged (and --prefix-cache): dense engines,
+               as the CLI serves by default. Each run's launches are
+               zeroed before and read after, and held to its engines'
+               forward passes (paged attention 0 on dense engines) and to
+               the kernel nodes its replays ran; no plain version may run.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
@@ -744,6 +766,82 @@ def small_phase(arch):
                  else "identical"))
     small_prefix(cfg, cpu_params, gpu_params)
     small_sampled(cfg, cpu_params, gpu_params)
+    small_dense(cfg, cpu_params, gpu_params)
+
+
+def store_difference(card, cpu):
+    """How the card's dense store departs from the CPU's, slot rows only
+    (the sink row takes pad writes in no set order): ``kpos`` rows that
+    differ, the largest K/V or scale difference where ``kpos`` is valid
+    (float leaves), and the int8 codes that differ there (at most one
+    apart, or the count is of codes further apart, negated)."""
+    kpos_rows, err, flips = 0, 0.0, 0
+    for seg_g, seg_c in zip(card, cpu):
+        kg, kc = seg_g["kpos"][:, :-1].cpu(), seg_c["kpos"][:, :-1]
+        kpos_rows += int((kg != kc).any(dim=-1).sum())
+        valid = kc > -(1 << 29)
+        for name, x in seg_g.items():
+            if name == "kpos":
+                continue
+            g, c = x[:, :-1].cpu()[valid], seg_c[name][:, :-1][valid]
+            if not g.numel():
+                continue
+            if x.dtype == torch.int8:
+                d = (g.int() - c.int()).abs()
+                flips += int((d > 0).sum()) if int(d.max()) <= 1 else -int((d > 1).sum())
+            else:
+                err = max(err, float((g - c).abs().max()))
+    return kpos_rows, err, flips
+
+
+def small_dense(cfg, cpu_params, gpu_params):
+    """The dense layout (no ``paged``, the reference's default engine) on
+    the reduced config, 4 slots of 128 rows: fp32 and int8 KV, whole-prompt
+    and chunked (chunk 8), budgets that free slots while others decode, so
+    blocks run in buckets under the 4 slots; then one sampled drive (rows
+    cycle greedy, temperature-only and top-k/top-p, chunked). Card and CPU
+    give the same tokens and entry names; the card's store holds the CPU's
+    ``kpos`` on every slot row and K/V within 1e-5 where ``kpos`` is valid
+    (int8: codes at most one apart, on under 1e-3 of them)."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    modes = list(sampling_modes().values())
+    drives = [(kv_int8, chunk, False) for kv_int8 in (False, True) for chunk in (0, 8)]
+    for kv_int8, chunk, sampled in drives + [(False, 8, True)]:
+        runs = {}
+        for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
+            eng = InferenceEngine(cfg, params, n_slots=4, max_len=128, decode_block=4,
+                                  kv_int8=kv_int8, prefill_chunk=chunk, seed=SEED,
+                                  device=dev)
+            check(not eng.paged, "a default engine is not dense")
+            for i, p in enumerate(PROMPTS[:6]):
+                eng.submit(tok.encode(p, bos=True), max_new_tokens=12 + 4 * i,
+                           sampling=modes[i % 3] if sampled else None)
+            eng.run_to_completion()
+            runs[dev] = ({f.rid: f.token_ids for f in eng.finished}, sorted(eng.entry_points),
+                         eng.chunk_steps, eng.cache)
+        label = (f"small dense reduced {cfg.name} fp32 kv_int8={kv_int8} chunk={chunk}"
+                 + (" sampled" if sampled else ""))
+        streams, entries, chunks, store = runs["cuda"]
+        check(runs["cpu"][:3] == (streams, entries, chunks),
+              f"{label}: card and CPU differ in tokens, entries or chunk count")
+        check(len(streams) == 6 and (chunk == 0 or chunks > 0),
+              f"{label}: {len(streams)} of 6 finished, {chunks} chunks")
+        blocks = [n for n in entries if n.startswith(("decode_", "mixed_"))]
+        check(any(int(n.split("_")[1][2:]) < 4 for n in blocks),
+              f"{label}: no block ran in a bucket under the 4 slots: {blocks}")
+        kpos_rows, err, flips = store_difference(store, runs["cpu"][3])
+        n_codes = sum(x[:, :-1].numel() for seg in store for name, x in seg.items()
+                      if x.dtype == torch.int8)
+        check(kpos_rows == 0 and err <= 1e-5 and 0 <= flips < 1e-3 * max(n_codes, 1),
+              f"{label}: the card's store departs from the CPU's: {kpos_rows} kpos rows, "
+              f"max K/V difference {err:.3e}, int8 codes {flips}")
+        print(f"{label}: card == CPU tokens and entries for {len(streams)} requests "
+              f"({sum(map(len, streams.values()))} tokens), {chunks} chunks; store: kpos "
+              f"equal, max K/V difference {err:.3e} on valid rows"
+              + (f", {flips} int8 codes one apart" if kv_int8 else "")
+              + f"; block entries {blocks}")
 
 
 def small_sampled(cfg, cpu_params, gpu_params):
@@ -1042,22 +1140,24 @@ def card_launches(prof):
     return counts
 
 
-def expected_launches(L, groups, steps, passes):
+def expected_launches(L, groups, steps, passes, paged=True):
     """Each wrapper's calls in ``groups`` whole-prompt prefill groups,
     ``steps`` decode steps and ``passes`` chunk passes of an L-layer model:
-    paged attention once a layer a decode step, flash attention once a
-    layer a group, RMSNorm twice a layer and once more (the final norm)
-    every forward pass."""
-    return {"paged_attention": L * steps, "flash_attention": L * groups,
+    paged attention once a layer a decode step on a paged engine (never on
+    a dense one, whose decode attention is plain PyTorch), flash attention
+    once a layer a group, RMSNorm twice a layer and once more (the final
+    norm) every forward pass."""
+    return {"paged_attention": L * steps if paged else 0, "flash_attention": L * groups,
             "fused_rmsnorm": (2 * L + 1) * (groups + steps + passes)}
 
 
 def graph_against_eager(eng, label):
     """Run the engine's next block twice from one state: the entry's eager
-    callable, then (page store and static inputs restored) the graph's
-    replay. Tokens, validity and live mask must be identical and the page
-    store equal byte for byte outside the trash page; prints what differs,
-    and the host wall of each run (with a sync). Returns the entry's name."""
+    callable, then (KV store and static inputs restored) the graph's
+    replay. Tokens, validity and live mask must be identical and the KV
+    store equal byte for byte outside the trash page (a page store) or the
+    sink row (a dense store); prints what differs, and the host wall of
+    each run (with a sync). Returns the entry's name."""
     from repro_torch.serving.graphs import COUNTED
     seen = []
 
@@ -1088,7 +1188,8 @@ def graph_against_eager(eng, label):
             parts = {"toks": slice(0, k), "valid": slice(k, 2 * k), "live_final": slice(2 * k, None)}
             out_diff = [part for part, sl in parts.items()
                         if not torch.equal(out_e[sl], out_g[sl])]
-            # every page but the trash page (the last), which no table maps:
+            # every page but the trash page (the last), which no table maps,
+            # or every slot row but the dense store's sink row (the last):
             # rows aimed there (dead lanes, pad rows, length-0 chunk passes)
             # collide on its slots, and which of them lands is not ordered.
             # Layer by layer: a whole leaf's byte mask, summed, would take
@@ -1114,10 +1215,11 @@ def graph_against_eager(eng, label):
         eng.step()
     check(len(seen) == 1, f"{label}: graph against eager ran {len(seen)} entries")
     name, k, out_diff, page_diff, trash, eager_ms, graph_ms = seen[0]
+    store, sink = ("page store", "trash page") if eng.paged else ("dense store", "sink row")
     print(f"graphs {label}: {name} run eagerly and replayed from one state: outputs "
-          f"{'identical' if not out_diff else 'differ in ' + str(out_diff)}; page store "
+          f"{'identical' if not out_diff else 'differ in ' + str(out_diff)}; {store} "
           f"{'equal byte for byte' if not page_diff else 'differs: ' + '; '.join(page_diff)} "
-          f"outside the trash page ({trash} bytes of the trash page differ); "
+          f"outside the {sink} ({trash} bytes of the {sink} differ); "
           f"host wall with sync {eager_ms / k:.2f} ms/step eager, {graph_ms / k:.2f} ms/step "
           f"replayed ({k} steps)")
     check(not out_diff and not page_diff,
@@ -1194,7 +1296,7 @@ def profile_block(eng, label):
                    in zip(wrappers().items(), counts0)}
         ran = graph_launches(replays)
         card = card_launches(prof)
-        want = expected_launches(eng.cfg.n_layers, 0, k, passes)
+        want = expected_launches(eng.cfg.n_layers, 0, k, passes, eng.paged)
         check(ran == counted == want and all(card[n] <= ran[n] for n in ran),
               f"{label}: profiled block of {k} steps and {passes} chunk passes ran "
               f"kernels {ran} by its graph, {card} in the profiler's events; counted "
@@ -1213,13 +1315,14 @@ def profile_block(eng, label):
     what = (f"mixed block of {n_first + 1} decoding lanes + one 100-token prompt in "
             f"{eng.prefill_chunk}-token chunks" if mixed
             else f"decode block of {eng.n_slots} lanes")
+    attn = (f"paged_attention {by_name('paged_attention'):.3f} ms/step" if eng.paged
+            else "dense attention: plain PyTorch, timed alone below")
     print(f"profile {label}: {what} x {k} steps, replayed: wall "
           f"{bare_ms:.2f} ms/step bare, {prof_ms:.2f} under the profiler; device "
           f"kernel time {kern_ms:.3f} ms/step (torch.profiler; busy share "
           f"{kern_ms / bare_ms:.3f} of the bare wall); replay device time "
           f"{replay_ms:.3f} ms/step (CUDA events; busy share {replay_ms / bare_ms:.3f}); "
-          f"paged_attention {by_name('paged_attention'):.3f} ms/step, "
-          f"rmsnorm {by_name('rmsnorm'):.3f} ms/step; kernels run by the replayed graph "
+          f"{attn}, rmsnorm {by_name('rmsnorm'):.3f} ms/step; kernels run by the replayed graph "
           f"{ran} (= counted = expected; in the profiler's events {card}); top kernels: "
           f"{top}")
 
@@ -1511,7 +1614,7 @@ def check_measured_drive(eng, sched, label, launches, replays, plain, fwd):
     check(all(f.gen_tokens >= 1 for f in fin), f"{label}: a request generated nothing")
     levels = sorted({f.directive_level for f in fin})
     check(levels == [0, 1, 2], f"{label}: directive levels {levels}")
-    want = expected_launches(cfg.n_layers, *fwd)
+    want = expected_launches(cfg.n_layers, *fwd, eng.paged)
     check(launches == want, f"{label}: launches {launches} != expected {want} from "
           f"{fwd[0]} prefill groups, {fwd[1]} decode steps, {fwd[2]} chunk passes")
     # what the card ran: each replay runs every kernel node of its graph
@@ -1526,7 +1629,8 @@ def in_order(sched):
     return [f.token_ids for f in sorted(sched.finished, key=lambda f: f.rid)]
 
 
-def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=False):
+def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=False,
+          paged=True):
     """One main-path run: 12 requests through the scheduler, driven once to
     build the entry table (every wrapper call of a capture runs here, and
     no plain version may) and again, with the table frozen, to measure.
@@ -1537,13 +1641,19 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=Fal
     a third top-k/top-p (``sampling_modes``); each drive starts from the
     engine's seed key, so the two drives must give identical streams; the
     profile is ``profile_modes``'s, and a chunked run's a mixed ``_full``
-    block graph against eager (``mixed_full_against_eager``)."""
+    block graph against eager (``mixed_full_against_eager``). ``paged``
+    False: the dense layout (the reference's default engine), whose decode
+    attention is plain PyTorch, so paged attention must launch 0 times; a
+    whole-prompt run also runs a bucketed block (3 lanes of 8) graph
+    against eager (``bucketed_against_eager``), and both time the dense
+    attention against its bound (``dense_attention``)."""
     from repro_torch.serving import prng
     from repro_torch.serving.engine import InferenceEngine
-    eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, paged=True,
-                          page_size=32, decode_block=8, kv_int8=kv_int8,
-                          prefill_chunk=prefill_chunk, seed=SEED, device="cuda")
-    label = (f"{cfg.name} bf16 kv_int8={kv_int8}"
+    layout = dict(paged=True, page_size=32) if paged else {}
+    eng = InferenceEngine(cfg, params, n_slots=8, max_len=1024, decode_block=8,
+                          kv_int8=kv_int8, prefill_chunk=prefill_chunk, seed=SEED,
+                          device="cuda", **layout)
+    label = (f"{cfg.name} bf16{'' if paged else ' dense'} kv_int8={kv_int8}"
              + (f" prefill_chunk={prefill_chunk}" if prefill_chunk else "")
              + (" sampled" if sampled else ""))
     plain_calls.clear()
@@ -1588,6 +1698,10 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=Fal
     decode_s = sum(f.decode_s for f in fin)
     dec_tokens = eng.decode_tokens - tokens0
     kv = eng.kv_stats()
+    kv_line = (f"peak pages {kv['peak_pages_in_use']} of {kv['n_pages']} "
+               f"({kv['peak_kv_bytes_in_use'] / 2**20:.1f} MiB KV)" if paged else
+               f"dense store {kv['kv_bytes_capacity'] / 1e9:.3f} GB (8 slots x 1024 rows, "
+               f"kpos included, the sink row not)")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"serve {label}: {len(fin)} requests, levels "
           f"{[f.directive_level for f in fin]}, gen tokens {[f.gen_tokens for f in fin]}; "
@@ -1597,12 +1711,13 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=Fal
           f"{plain or 0} (building drive 0); decode tokens {dec_tokens} in {decode_s:.3f} s = "
           f"{dec_tokens / decode_s:.1f} tok/s (replayed dispatches only); wall {wall:.3f} s "
           f"({sum(f.gen_tokens for f in fin) / wall:.1f} gen tok/s; the building drive "
-          f"{warm_wall:.3f} s); peak pages {kv['peak_pages_in_use']} of {kv['n_pages']} "
-          f"({kv['peak_kv_bytes_in_use'] / 2**20:.1f} MiB KV); peak device memory "
+          f"{warm_wall:.3f} s); {kv_line}; peak device memory "
           f"{peak_gib:.2f} GiB" + ("; the same seed twice: identical streams" if sampled
                                    else ""))
     print(f"entries {label}: {len(names)} entries {sorted(names)}; {captures} captures in "
           f"{capture_ms:.0f} ms; graph pool {eng.graphs.pool_bytes / 2**20:.1f} MiB")
+    if not paged and not prefill_chunk:
+        bucketed_against_eager(eng, label)
     if not sampled:
         profile_block(eng, label)
     elif prefill_chunk:
@@ -1613,7 +1728,145 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=Fal
     print(f"entries {label} after the profile: {len(eng.entry_points)} entries, "
           f"{eng.graphs.captures} captures in {eng.graphs.capture_ms:.0f} ms, graph pool "
           f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
+    if not paged:
+        dense_decode_check(eng, label)
+        dense_attention(eng, label)
     return launches, {f.rid: f.token_ids for f in fin}
+
+
+def bucketed_against_eager(eng, label):
+    """A dense decode block in a bucket smaller than the slots (3 lanes of
+    8 in a bucket of 4, one pad row aimed at the sink row) run graph
+    against eager: the scenario runs once to build its entries, then again
+    to compare (``graph_against_eager``; the sink row is the store's last
+    row, which the comparison leaves out as it leaves out the trash page)."""
+    prompts = [[1 + (7 * i + j) % 250 for j in range(100)] for i in range(3)]
+
+    def scenario(compare):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=40)
+        eng.step()                                 # prefill + first block
+        name = graph_against_eager(eng, f"{label} bucketed") if compare else None
+        eng.run_to_completion()
+        eng.finished = []
+        return name
+
+    scenario(False)
+    name = scenario(True)
+    check(name.startswith("decode_bs4_"), f"{label}: the compared block ran {name}, "
+          "not a bucket of 4")
+
+
+def dense_decode_check(eng, label):
+    """The dense decode attention on the engine's own store, gated: one
+    middle layer's ``attention.attend_rows`` after the drives (the K/V the
+    serve runs wrote, rows of many lengths) against an fp32 computation of
+    the same attention that shares no code with it: each row's valid keys
+    picked by its ``kpos`` in a Python loop, fp32 matmuls, and the
+    reference's roundings (scores and P to bf16). Read three ways: the
+    whole batch in place (the engine's full bucket), the whole batch
+    through a gather, and a bucket naming slots 6, 1 and 3 with a pad lane
+    on the sink row (the engine's smaller buckets). Even rows query at
+    their last written position, odd rows halfway, so the causal mask cuts
+    written rows. Held to 2**-6 of max(1, max |reference|), two bf16 ulps
+    of the output: a wrong row or mask moves outputs by O(|v|)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import torch_dtype
+    cfg, n = eng.cfg, eng.n_slots
+    li = cfg.n_layers // 2
+    layer = {key: x[li] for key, x in eng.cache[0].items()}
+    kv_h, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    last = layer["kpos"][:n].max(dim=1).values
+    idx = torch.arange(n, device="cuda")
+    pos = torch.where(idx % 2 == 0, last, last // 2)
+    written = [b for b in range(n) if int(last[b]) >= 0]
+    check(len(written) == n, f"{label}: the drives left slot rows unwritten "
+          f"({n - len(written)} of {n})")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn(n, 1, cfg.n_heads, d, generator=gen,
+                    device="cuda").to(torch_dtype(cfg))
+
+    def reference(b, r):
+        kp = layer["kpos"][r]
+        sel = (kp >= 0) & (kp <= pos[b])
+        k, v = layer["k"][r][sel].float(), layer["v"][r][sel].float()
+        if "k_scale" in layer:
+            k = k * layer["k_scale"][r][sel][..., None]
+            v = v * layer["v_scale"][r][sel][..., None]
+        s = torch.einsum("kgd,nkd->kgn", q[b, 0].float().view(kv_h, g, d), k)
+        p = torch.softmax(s.to(torch.bfloat16).float() / math.sqrt(d), dim=-1)
+        return torch.einsum("kgn,nkd->kgd", p.to(torch.bfloat16).float(), v)
+
+    want = torch.stack([reference(b, b) for b in range(n)])
+    bucket = [6, 1, 3]
+    pad = torch.tensor(bucket + [0], device="cuda")
+    reads = {
+        "in place": A.attend_rows(layer, q, pos, idx, in_place=True)[:, 0],
+        "gathered": A.attend_rows(layer, q, pos, idx)[:, 0],
+        "bucket [6, 1, 3, sink]": A.attend_rows(
+            layer, q[pad], pos[pad], torch.tensor(bucket + [n], device="cuda"))[:3, 0],
+    }
+    tol = 2.0 ** -6 * max(1.0, want.abs().max().item())
+    errs = {}
+    for how, got in reads.items():
+        ref = want[bucket] if how.startswith("bucket") else want
+        errs[how] = (got.float() - ref).abs().max().item()
+        check(errs[how] <= tol, f"dense decode {label} {how}: max abs err "
+              f"{errs[how]:.3e} against the fp32 computation, tolerance {tol:.3e}")
+    print(f"dense decode check {label}: layer {li} of the served store, {n} rows "
+          f"(queries at the last and the middle position), max abs err "
+          + ", ".join(f"{how} {e:.3e}" for how, e in errs.items())
+          + f" against fp32 with the reference's bf16 roundings, tolerance {tol:.3e}: ok")
+
+
+def dense_attention(eng, label):
+    """The dense decode attention of one step alone (``attention.
+    _cache_write`` and ``attend_rows`` of one layer: the new token's K/V
+    written, then 8 queries over their slots' whole rows of 1024), timed
+    by CUDA-graph replay on the engine's layer-0 store (its K/V from the
+    drives) and multiplied by the layer count, against its bound: every K
+    and V byte of the 8 rows of 1024 tokens read once a layer, over the
+    card's memory rate (kpos, 4 bytes a row against K/V's 20,480, is left
+    out). The plain PyTorch reads the rows and rounds the scores as the
+    reference does; it is no kernel of the port's own."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import torch_dtype
+    cfg, B = eng.cfg, eng.n_slots
+    layer = {key: x[0] for key, x in eng.cache[0].items()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch_dtype(cfg)
+    q = torch.randn(B, 1, cfg.n_heads, cfg.head_dim, generator=gen, device="cuda").to(dt)
+    k_new = torch.randn(B, 1, cfg.n_kv_heads, cfg.head_dim, generator=gen,
+                        device="cuda").to(dt)
+    v_new = torch.randn_like(k_new)
+    pos = torch.arange(B, device="cuda") * 100 + 200
+    rows = torch.arange(B, device="cuda")
+
+    def step():
+        A._cache_write(layer, k_new, v_new, pos, rows)
+        return A.attend_rows(layer, q, pos, rows, in_place=True)
+
+    ms = cuda_ms(step) * cfg.n_layers
+    kv_bytes = sum(layer[key][:B].numel() * layer[key].element_size()
+                   for key in ("k", "v")) * cfg.n_layers
+    bound = kv_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"dense attention {label}: {ms:.3f} ms a decode step ({cfg.n_layers} layers x "
+          f"{ms / cfg.n_layers * 1e3:.1f} us, CUDA-graph replay) against its bound "
+          f"{bound:.3f} ms ({kv_bytes / 1e9:.3f} GB of K/V over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; share {bound / ms:.3f})")
+    return ms, bound
+
+
+def dense_against_paged(cfg, chunk, dense, paged):
+    """The share of the dense run's streams equal to the paged bf16 run's on
+    the same traffic, printed, not gated: in bf16 the dense decode's
+    ``_sdpa`` rounds scores and P to bf16 (the reference's arithmetic),
+    where the paged kernel keeps them in fp32, so a near-tie may part."""
+    same = sum(dense[rid] == paged[rid] for rid in paged)
+    print(f"serve {cfg.name} bf16 dense against paged"
+          + (f" prefill_chunk={chunk}" if chunk else "") + f": {same} of {len(paged)} "
+          f"streams identical; (request, first differing token) "
+          f"{first_differences(dense, paged)}")
 
 
 def cache_counters(eng):
@@ -1935,6 +2188,9 @@ def gateway_phase(cfg, params, kernels, plain_calls):
 # (the LP waits for five profiled requests at every level)
 CLI_ARGV = ["--gateway", "--paged", "--prefix-cache", "--regions", "CA,TX",
             "--replicas", "1", "--slots", "8", "--hours", "3", "--requests", "12"]
+# the same without --paged (and so without --prefix-cache): dense engines,
+# as the CLI serves by default
+CLI_ARGV_DENSE = [a for a in CLI_ARGV if a not in ("--paged", "--prefix-cache")]
 
 
 @contextlib.contextmanager
@@ -1956,17 +2212,21 @@ def counted_entry_runs(replays):
         Entry.run = run
 
 
-def cli_phase(kernels, plain_calls):
+def cli_phase(kernels, plain_calls, argv):
     """The port's serving entry point on the card: ``repro_torch.launch.serve``
-    ``main(CLI_ARGV)``, what ``python -m repro_torch.launch.serve`` runs,
+    ``main(argv)``, what ``python -m repro_torch.launch.serve`` runs,
     driven in this process so that its launches are held. The counts are
     zeroed just before and read just after; they must equal the expected
     launches over its own engines' forward passes (max_len 96, built by the
-    launcher) and the kernel nodes their replays ran, and no plain version
-    may run. Its lines must show every hour, 0 rejected, and a solved plan;
-    with no ``--arch`` it serves the default, the paper's llama2-13b.
-    Returns each kernel's launches."""
+    launcher; paged attention 0 on dense engines, without ``--paged``) and
+    the kernel nodes their replays ran, and no plain version may run. Its
+    lines must show every hour, 0 rejected, and a solved plan; with no
+    ``--arch`` it serves the default, the paper's llama2-13b; with
+    ``--prefix-cache`` it must serve prefill from cached pages. Returns
+    each kernel's launches."""
     from repro_torch.launch import serve as cli
+    paged, prefix = "--paged" in argv, "--prefix-cache" in argv
+    tag = "cli" if paged else "cli dense"
     for kern in kernels.values():
         kern.launches = 0
     plain_calls.clear()
@@ -1974,46 +2234,49 @@ def cli_phase(kernels, plain_calls):
     out = io.StringIO()
     t0 = time.monotonic()
     with counted_entry_runs(replays), contextlib.redirect_stdout(out):
-        gw = cli.main(CLI_ARGV)
+        gw = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
     plain = dict(plain_calls)
     lines = out.getvalue().splitlines()
     for line in lines:
-        print(f"cli: {line}")
-    hours = int(CLI_ARGV[CLI_ARGV.index("--hours") + 1])
-    requests = int(CLI_ARGV[CLI_ARGV.index("--requests") + 1])
+        print(f"{tag}: {line}")
+    hours = int(argv[argv.index("--hours") + 1])
+    requests = int(argv[argv.index("--requests") + 1])
     total = [ln for ln in lines if ln.startswith("total:")]
-    check(len(total) == 1 and ", 0 rejected," in total[0], f"cli total line {total}")
+    check(len(total) == 1 and ", 0 rejected," in total[0], f"{tag} total line {total}")
     check([ln.split(":")[0] for ln in lines if ln.startswith("hour ")]
-          == [f"hour {h}" for h in range(hours)], "cli: not one line an hour")
+          == [f"hour {h}" for h in range(hours)], f"{tag}: not one line an hour")
     st = gw.stats
     check(st.rejected == 0 and st.requests == hours * requests,
-          f"cli: {st.requests} accounted, rejected {st.rejected_reasons}")
+          f"{tag}: {st.requests} accounted, rejected {st.rejected_reasons}")
     solvers = sorted({p.solver for p in st.plans})
-    check(set(solvers) - {"warmup"}, f"cli: no hour ran a solved plan: {solvers}")
+    check(set(solvers) - {"warmup"}, f"{tag}: no hour ran a solved plan: {solvers}")
     engines = [eng for pool in gw.pools for eng in pool.scheduler.engines]
     cfg = engines[0].cfg
     check(cfg.name == "llama2-13b" and all(eng.cfg == cfg for eng in engines),
-          f"cli: served {[eng.cfg.name for eng in engines]}, not the default llama2-13b")
+          f"{tag}: served {[eng.cfg.name for eng in engines]}, not the default llama2-13b")
     for i, eng in enumerate(engines):
-        check_graph_nodes(eng, f"cli engine {i}")
+        check_graph_nodes(eng, f"{tag} engine {i}")
+    check(all(eng.paged == paged and eng.prefix_cache == prefix for eng in engines),
+          f"{tag}: engines paged {[eng.paged for eng in engines]}, prefix cache "
+          f"{[eng.prefix_cache for eng in engines]} for {argv}")
     cached = [eng.prefill_tokens_cached for eng in engines]
-    check(all(eng.prefix_cache for eng in engines) and sum(cached) > 0
-          and sum(r.cached_tokens for r in st.telemetry) == sum(cached),
-          f"cli: --prefix-cache engines cached {cached} prefill tokens")
+    check(not prefix or (sum(cached) > 0
+                         and sum(r.cached_tokens for r in st.telemetry) == sum(cached)),
+          f"{tag}: --prefix-cache engines cached {cached} prefill tokens")
     fwd = [(eng.prefill_groups, eng.steps, eng.chunk_passes) for eng in engines]
-    want = {name: sum(expected_launches(cfg.n_layers, *f)[name] for f in fwd)
+    want = {name: sum(expected_launches(cfg.n_layers, *f, paged)[name] for f in fwd)
             for name in kernels}
-    check(launches == want, f"cli: launches {launches} != expected {want} from "
+    check(launches == want, f"{tag}: launches {launches} != expected {want} from "
           f"(prefill groups, decode steps, chunk passes) {fwd}")
     ran = graph_launches(replays)
-    check(ran == launches, f"cli: its {sum(replays.values())} replays ran kernels "
+    check(ran == launches, f"{tag}: its {sum(replays.values())} replays ran kernels "
           f"{ran} by their graphs; counted {launches}")
-    check(sum(plain.values()) == 0, f"cli: plain versions called: {plain}")
-    print(f"cli: `python -m repro_torch.launch.serve {' '.join(CLI_ARGV)}` served "
-          f"{cfg.name} (the default --arch) in "
+    check(sum(plain.values()) == 0, f"{tag}: plain versions called: {plain}")
+    print(f"{tag}: `python -m repro_torch.launch.serve {' '.join(argv)}` served "
+          f"{cfg.name} (the default --arch, {'paged' if paged else 'dense'} KV) in "
           f"{wall:.1f} s (model init and captures included), 0 rejected; plans by "
           f"{solvers}; launches {launches} (= expected over its engines' (prefill "
           f"groups, decode steps, chunk passes) {fwd} = the kernel nodes of its "
@@ -2065,17 +2328,20 @@ def build_model(arch):
 
 
 # the serve phase's models, one at a time: the paper's model first, with
-# every run (five serve runs: bf16 KV, int8 KV, chunked prefill 48, and
-# sampled traffic with bf16 KV, whole-prompt and chunked; the gateway; a
-# prefill-group profile), then one bf16 serve run each of the others.
-# granite is the one config with GQA groups of 4. A run is (kv_int8,
-# prefill_chunk, sampled)
+# every run (five paged serve runs: bf16 KV, int8 KV, chunked prefill 48,
+# and sampled traffic with bf16 KV, whole-prompt and chunked; two dense
+# runs, the reference's default layout, bf16 KV whole-prompt and chunked
+# 48; the gateway; a prefill-group profile), then one paged bf16 serve run
+# each of the others. granite is the one config with GQA groups of 4. A run
+# is (kv_int8, prefill_chunk, sampled, paged)
 SERVE_MODELS = (
-    ("llama2_13b", ((False, 0, False), (True, 0, False), (False, 48, False),
-                    (False, 0, True), (False, 48, True)), True),
-    ("llama2_7b", ((False, 0, False),), False),
-    ("minicpm_2b", ((False, 0, False),), False),
-    ("granite_3_2b", ((False, 0, False),), False),
+    ("llama2_13b", ((False, 0, False, True), (True, 0, False, True),
+                    (False, 48, False, True), (False, 0, True, True),
+                    (False, 48, True, True), (False, 0, False, False),
+                    (False, 48, False, False)), True),
+    ("llama2_7b", ((False, 0, False, True),), False),
+    ("minicpm_2b", ((False, 0, False, True),), False),
+    ("granite_3_2b", ((False, 0, False, True),), False),
 )
 
 
@@ -2109,17 +2375,22 @@ def serve_phase():
                     profile_prefill(cfg, params)
                     free_device_memory()
                 streams = {}
-                for kv_int8, chunk, sampled in runs:
-                    launches, streams[kv_int8, chunk, sampled] = serve(
-                        cfg, params, kv_int8, chunk, kernels, plain_calls, sampled)
+                for kv_int8, chunk, sampled, paged in runs:
+                    launches, streams[kv_int8, chunk, sampled, paged] = serve(
+                        cfg, params, kv_int8, chunk, kernels, plain_calls, sampled,
+                        paged)
                     for name, n in launches.items():
                         totals[name] += n
                     free_device_memory()    # the run's engine and its graphs
+                for chunk in (0, 48):
+                    if (False, chunk, False, False) in streams:
+                        dense_against_paged(cfg, chunk, streams[False, chunk, False, False],
+                                            streams[False, chunk, False, True])
                 if main_path:
                     t1 = time.monotonic()
                     for name, n in serve_prefix(cfg, params, kernels, plain_calls,
-                                                streams[False, 0, False],
-                                                streams[False, 48, False]).items():
+                                                streams[False, 0, False, True],
+                                                streams[False, 48, False, True]).items():
                         totals[name] += n
                     free_device_memory()
                     print(f"serve {cfg.name} prefix cache run: {time.monotonic() - t1:.1f} s")
@@ -2129,10 +2400,12 @@ def serve_phase():
                 del params
                 free_device_memory()
                 phase_memory(f"serve {cfg.name}", t0)
-            t0 = time.monotonic()
-            for name, n in cli_phase(kernels, plain_calls).items():
-                totals[name] += n
-            phase_memory("cli", t0)
+            for argv in (CLI_ARGV, CLI_ARGV_DENSE):
+                t0 = time.monotonic()
+                for name, n in cli_phase(kernels, plain_calls, argv).items():
+                    totals[name] += n
+                free_device_memory()        # the CLI's weights and engines
+                phase_memory("cli" + ("" if "--paged" in argv else " dense"), t0)
     finally:
         for name, fn in originals.items():
             setattr(ref, f"{name}_ref", fn)

@@ -1,10 +1,11 @@
 """Serving launcher of the port: the SPROUT carbon-aware service as a CLI
 (counterpart of ``repro/launch/serve.py``, with its flags).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --gateway --paged \
+    PYTHONPATH=src python -m repro_torch.launch.serve --gateway \
         --regions CA,TX --replicas 1 --slots 8 --hours 3 --requests 12
 
-Runs the port's paged greedy engine with the full SPROUT control plane:
+Runs the port's engine (dense KV rows, or with ``--paged`` a block-table
+page store) with the full SPROUT control plane:
 hourly LP re-planning from the regional carbon-intensity trace, directive
 rendering into system prompts, level-cost profiling, and preemption-safe
 scheduling. ``--arch`` defaults to the paper's model, llama2_13b, as in
@@ -18,15 +19,17 @@ pool per ``--regions`` entry, the LP re-planned per pool from its live
 intensity, engine telemetry fed back into the level profiles, and requests
 routed to the greenest pool under a load cap. ``--tenants``, ``--slo``,
 ``--migrate``, ``--forecast-horizon`` and ``--drain-at`` act as in the
-reference (DESIGN.md §8, §10). ``--prefix-cache`` serves the shared
-directive system prompts from indexed pages (DESIGN.md §13). Accounting is the reference's: the
+reference (DESIGN.md §8, §10). ``--prefix-cache`` (with ``--paged``)
+serves the shared directive system prompts from indexed pages (DESIGN.md
+§13). Accounting is the reference's: the
 ``LLAMA2_13B`` profile priced on ``A100_40GB`` with modeled (not wall)
 decode time.
 
 Flags the port cannot serve yet raise ``NotImplementedError`` when the
-arguments are parsed, each naming its ROADMAP.md item: ``--chaos``,
-``--tp-degree`` above 1 and the dense layout (no ``--paged``); so does an
-architecture the port does not hold. The
+arguments are parsed, each naming its ROADMAP.md item: ``--chaos`` and
+``--tp-degree`` above 1; so does an architecture the port does not hold.
+``--prefix-cache`` without ``--paged`` raises ``ValueError``: the
+reference's flag requires ``--paged``, and the port drops no flag. The
 reference's ``chaos_plan`` returns with fault injection.
 """
 from __future__ import annotations
@@ -52,10 +55,6 @@ from repro_torch.serving import (CarbonAwareScheduler, InferenceEngine,
                                  MigrationPlanner, ServeRequest,
                                  SproutGateway, no_faults, serve_request_from)
 
-# the reference's dense architecture with sliding-window attention: its
-# cache pages nowhere in the reference (``paged_supported``), so it waits
-# for the dense KV layout
-WINDOWED_DENSE = ("starcoder2_15b",)
 
 # request mix across service classes for --tenants runs (premium is the
 # minority class with the hard floor; batch soaks up the brief levels)
@@ -189,33 +188,37 @@ def run_gateway(args, cfg, params) -> SproutGateway:
 
 
 def engine_kv_kwargs(args) -> dict:
-    """KV-layout engine kwargs shared by both serving modes. Paged is the
-    port's only layout; ``--tp-degree`` above 1 raises at parsing, so the
-    engine's default holds for it."""
-    return {"kv_int8": args.kv_int8, "prefill_chunk": args.prefill_chunk,
-            "paged": True, "page_size": args.page_size,
-            "n_pages": args.pages if args.pages > 0 else None,
-            "prefix_cache": args.prefix_cache}
+    """KV-layout engine kwargs shared by both serving modes: dense rows
+    unless ``--paged``, as in the reference. ``--tp-degree`` above 1
+    raises at parsing, so the engine's default holds for it."""
+    kw = {"kv_int8": args.kv_int8, "prefill_chunk": args.prefill_chunk}
+    if args.paged:
+        kw.update(paged=True, page_size=args.page_size,
+                  n_pages=args.pages if args.pages > 0 else None,
+                  prefix_cache=args.prefix_cache)
+    return kw
 
 
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for an architecture or a flag the port
-    cannot serve yet, naming its ROADMAP.md item (modules still to port).
-    No flag is ignored, and none is switched to something else."""
+    cannot serve yet, naming its ROADMAP.md item (modules still to port),
+    and ``ValueError`` for ``--prefix-cache`` without ``--paged``, which
+    the reference's engine would drop. No flag is ignored, and none is
+    switched to something else."""
+    if args.prefix_cache and not args.paged:
+        raise ValueError("--prefix-cache rides the paged KV store "
+                         "(requires --paged)")
     arch = args.arch.replace("-", "_")
     if arch not in ARCH_IDS:
-        item = ("6, dense KV layout" if arch in WINDOWED_DENSE
-                else "10, other families")
         raise NotImplementedError(
             f"--arch {args.arch}: the port serves {ARCH_IDS} so far "
-            f"(ROADMAP.md, modules still to port: item {item})")
+            f"(ROADMAP.md, modules still to port: item 10, other families "
+            f"(layernorm, GELU, biases, sliding window))")
     for on, flag, item in (
             (args.chaos, "--chaos", "4, fault injection (its decode.nonfinite "
              "fault needs poison_lane)"),
             (args.tp_degree > 1, f"--tp-degree {args.tp_degree}",
-             "7, tensor-parallel decode"),
-            (not args.paged, "the dense KV layout (no --paged)",
-             "6, dense KV layout")):
+             "7, tensor-parallel decode")):
         if on:
             raise NotImplementedError(
                 f"{flag}: not in the port yet (ROADMAP.md, modules still to "
@@ -279,7 +282,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "drain moment)")
     ap.add_argument("--paged", action="store_true",
                     help="block-table paged KV cache + paged decode kernel "
-                         "(required: the port has no dense layout yet)")
+                         "(default: the dense per-slot KV layout)")
     ap.add_argument("--page-size", type=int, default=32,
                     help="tokens per KV page")
     ap.add_argument("--pages", type=int, default=0,
@@ -311,10 +314,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "tokens interleaved into the decode blocks "
                          "(0 = whole-prompt prefill)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="radix prefix cache over the paged KV store: "
-                         "requests sharing full prompt pages (the "
-                         "directive system prompts) adopt them instead of "
-                         "prefilling them")
+                    help="radix prefix cache over the paged KV store "
+                         "(requires --paged): requests sharing full prompt "
+                         "pages (the directive system prompts) adopt them "
+                         "instead of prefilling them")
     args = ap.parse_args(argv)
     if args.slo:
         args.tenants = True

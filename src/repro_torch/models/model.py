@@ -1,5 +1,5 @@
-"""Dense decoder: init / prefill / paged decode (counterpart of
-``repro/models/model.py``, dense family only).
+"""Dense decoder: init / prefill / decode over a dense or paged KV store
+(counterpart of ``repro/models/model.py``, dense family only).
 
 Parameters are a plain dict of tensors in the reference's layout, so the
 JAX tree converts leaf for leaf (``params_from_jax``): per-segment stacked
@@ -11,7 +11,13 @@ embedding, or its own (d, V) leaf ``embed.unembed``). Every norm goes
 through the fused RMSNorm op (``layers.add_norm``), which also adds the
 attention residual in the same pass: 2·n_layers + 1 norm launches per
 forward. A prompt chunk (``prefill_chunk_step``) runs the same block over
-one lane's chunk against its pages.
+one lane's chunk against its rows or pages.
+
+The KV store is the caller's: ``init_cache`` builds the dense one (the
+reference's default; per slot, ``max_len`` rows of K/V and their
+positions), ``init_paged_cache`` the paged one. Decode and chunk steps
+take a block table with a page store and none with a dense store; the
+store alone decides the layout, and each layout has one code path.
 """
 from __future__ import annotations
 
@@ -144,8 +150,18 @@ def _layer(seg: Dict[str, Any], i: int):
 
 
 # ======================================================================
-# paged store
+# stores
 # ======================================================================
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Per-segment stacked dense stores (axis 0 = layer within segment) of
+    ``batch`` slots of ``max_len`` tokens, each with a sink row past the
+    slots (``attention.init_gqa_cache``)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return [A.init_gqa_cache(cfg, batch, max_len, layers=n, device=dev)
+            for _, n in cfg.segments()]
+
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      device="cuda"):
@@ -166,25 +182,29 @@ def _layer_cache(seg_cache, i: int):
 # forward
 # ======================================================================
 
-def _block(cfg, p, x, positions, mode, cache, block_table, live, prompt_pages):
+def _block(cfg, p, x, positions, mode, cache, block_table, live, rows,
+           in_place, prompt_to):
     h = apply_norm(cfg, p["ln1"], x)
-    if mode == "decode":
+    if mode == "decode" and block_table is None:
+        a = A.gqa_decode(cfg, p["attn"], h, positions, cache, rows=rows,
+                         in_place=in_place)
+    elif mode == "decode":
         a = A.gqa_decode_paged(cfg, p["attn"], h, positions, cache,
                                block_table, live=live)
     else:
         a, (k, v) = A.gqa_full(cfg, p["attn"], h, positions)
         if cache is not None:
-            A.write_pages(cache, k, v, *prompt_pages)
+            A.write_prompt(cache, k, v, prompt_to)
     h2, x = add_norm(cfg, p["ln2"], a, x)       # x + a, then its norm
     return x + apply_mlp(cfg, p["mlp"], h2)
 
 
 def block_apply_chunk(cfg: ModelConfig, p, x, positions, valid, lane, cache,
-                      *, block_table):
+                      *, block_table=None):
     """One block over a single lane's prompt chunk (1, C, d)
     (``model.py:352-365``): attention appends the chunk's K/V to the
-    lane's pages and attends over everything written so far; the FFN is
-    position-wise as usual."""
+    lane's rows or pages and attends over everything written so far; the
+    FFN is position-wise as usual."""
     h = apply_norm(cfg, p["ln1"], x)
     a = A.gqa_chunk_append(cfg, p["attn"], h, positions, valid, lane, cache,
                            block_table=block_table)
@@ -193,7 +213,7 @@ def block_apply_chunk(cfg: ModelConfig, p, x, positions, valid, lane, cache,
 
 
 def _hidden(cfg, params, tokens, mode, positions, cache, block_table, live,
-            prompt_pages):
+            rows, in_place, prompt_to):
     _check_supported(cfg)
     B, T = tokens.shape
     x = embed_tokens(cfg, params["embed"], tokens)
@@ -204,54 +224,84 @@ def _hidden(cfg, params, tokens, mode, positions, cache, block_table, live,
         for i in range(n):
             c = _layer_cache(cache[s], i) if cache is not None else None
             x = _block(cfg, _layer(seg, i), x, positions, mode, c,
-                       block_table, live, prompt_pages)
+                       block_table, live, rows, in_place, prompt_to)
     return apply_norm(cfg, params["norm"], x)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, mode: str = "prefill",
             positions=None, cache=None, block_table=None, live=None,
-            prompt_pages=None):
+            rows=None, in_place=False, prompt_to=None):
     """``tokens``: (B, T) integer ids (decode: (B, 1)).
 
-    prefill: positions (B, T) or None (= arange); with ``cache`` and
-      ``prompt_pages = (page (B, T), off (B, T))`` each layer writes the
-      prompt's K/V into its pages (pad rows aimed at the trash page).
-      Returns logits (B, T, V).
-    decode: positions (B,); ``cache`` is ``init_paged_cache`` output,
-      updated in place; block_table (B, max_pages) int32; live (B,) bool
-      gates dead-lane writes. Returns logits (B, V).
+    prefill: positions (B, T) or None (= arange); with ``cache`` each layer
+      writes the prompt's K/V through ``prompt_to``: ``(rows (B,), kpos
+      (B, T))`` into a dense store, ``(page (B, T), off (B, T))`` into a
+      page store (``attention.write_prompt``; pad rows aim at the sink row
+      or the trash page). Returns logits (B, T, V).
+    decode: positions (B,); ``cache`` is updated in place. A dense store
+      (``init_cache``) takes no block table; ``rows`` (B,) names each
+      batch row's store row (None: row b; ``in_place``: the batch is every
+      slot row in order; see ``attention.attend_rows``), and every row
+      writes, as in the reference's dense path. A page store
+      (``init_paged_cache``) takes block_table (B, max_pages) int32; live
+      (B,) bool gates dead-lane writes. Returns logits (B, V).
     """
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(
             f"mode {mode!r}: the port serves prefill and decode only")
     x = _hidden(cfg, params, tokens, mode, positions, cache, block_table,
-                live, prompt_pages)
+                live, rows, in_place, prompt_to)
     logits = unembed(cfg, params["embed"], x)
     return logits[:, 0] if mode == "decode" else logits
 
 
+def kpos_of(lengths, T: int):
+    """Each row's prompt positions 0..T-1, ``EMPTY_POS`` at and past its
+    length (the reference's ``kpos_of`` with ``lengths``): (B, T) int32."""
+    t = torch.arange(T, device=lengths.device, dtype=torch.int32)
+    return torch.where(t[None, :] < lengths[:, None], t[None, :],
+                       A.EMPTY_POS)
+
+
+def prefill(cfg: ModelConfig, params, tokens, *, max_len: int, lengths=None):
+    """Whole-prompt prefill into a fresh dense store (the reference's
+    ``prefill(max_len=...)``): returns (logits (B, T, V), the store of B
+    slots of ``max_len`` tokens holding the prompts at positions 0..T-1,
+    ``kpos`` empty at pad positions (t >= lengths) and past T)."""
+    B, T = tokens.shape
+    if lengths is None:
+        lengths = torch.full((B,), T, device=tokens.device)
+    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    rows = torch.arange(B, device=tokens.device)
+    logits = forward(cfg, params, tokens, mode="prefill", cache=cache,
+                     prompt_to=(rows, kpos_of(lengths, T)))
+    return logits, cache
+
+
 def prefill_last(cfg: ModelConfig, params, tokens, lengths, cache=None,
-                 prompt_pages=None):
+                 prompt_to=None):
     """Whole-prompt prefill returning only each row's last valid logits
-    (B, V); ``lengths`` (B,) valid tokens per row."""
+    (B, V); ``lengths`` (B,) valid tokens per row; with ``cache`` the
+    prompts' K/V go through ``prompt_to`` (``forward``)."""
     x = _hidden(cfg, params, tokens, "prefill", None, cache, None, None,
-                prompt_pages)
+                None, False, prompt_to)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     return unembed(cfg, params["embed"], x[rows, lengths - 1])
 
 
 def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0, clen, lane,
-                       cache, *, block_table):
+                       cache, *, block_table=None):
     """Run ONE prompt chunk for one lane through the whole stack
     (``model.py:368-404``).
 
     tokens: (C,) chunk token ids (pad beyond ``clen``); pos0: absolute
     position of tokens[0]; clen: valid length (0 = every write goes to the
-    trash page); lane: block-table row. ``pos0``, ``clen`` and ``lane`` are
-    0-dim integer tensors on the tokens' device, as the reference's scan
-    passes them, so nothing here reads a host value and a CUDA graph can
-    capture the step. ``cache`` (``init_paged_cache`` output) is written
-    in place. Returns the logits (V,) at position pos0 + clen - 1,
+    sink row or the trash page); lane: the store row (dense ``cache``, no
+    block table) or the block-table row (page store). ``pos0``, ``clen``
+    and ``lane`` are integer tensors of one element on the tokens' device,
+    as the reference's scan passes them, so nothing here reads a host
+    value and a CUDA graph can capture the step. ``cache`` (``init_cache``
+    or ``init_paged_cache`` output) is written in place. Returns the logits (V,) at position pos0 + clen - 1,
     meaningful on a request's final chunk."""
     _check_supported(cfg)
     C = tokens.shape[0]
@@ -269,9 +319,11 @@ def prefill_chunk_step(cfg: ModelConfig, params, tokens, pos0, clen, lane,
 
 
 def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,
-                       key, sampling, sample_fn, *, block_table, live=None,
-                       fold_ids=None):
-    """One paged decode step with sampling (``model.py:631-661``).
+                       key, sampling, sample_fn, *, block_table=None, live=None,
+                       rows=None, in_place=False, fold_ids=None):
+    """One decode step with sampling (``model.py:631-661``), over a dense
+    store (no block table; ``rows`` and ``in_place`` as in ``forward``) or a
+    page store (``block_table``, ``live``).
 
     ``sampling`` is a tuple of per-row tensors ``(temperature (B,) f32,
     top_k (B,) int, top_p (B,) f32)`` and ``sample_fn(logits, key,
@@ -281,5 +333,6 @@ def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,
     caller folds by slot id. A greedy caller passes ``key=None`` and
     ``sampling=()``. Returns the next tokens (B,)."""
     logits = forward(cfg, params, tokens, mode="decode", positions=positions,
-                     cache=cache, block_table=block_table, live=live)
+                     cache=cache, block_table=block_table, live=live,
+                     rows=rows, in_place=in_place)
     return sample_fn(logits, key, *sampling, fold_ids=fold_ids)

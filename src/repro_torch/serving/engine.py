@@ -1,11 +1,18 @@
-"""Slot-based continuous-batching inference engine over a paged KV store
-(counterpart of ``repro/serving/engine.py``, paged path).
+"""Slot-based continuous-batching inference engine over a dense or paged
+KV store (counterpart of ``repro/serving/engine.py``).
 
-A fixed set of ``n_slots`` slots. Queued requests are admitted while their
-worst-case page reservation fits the page budget. On an idle engine they
-are prefilled as whole prompts in batches grouped by padded length (the
-prompt K/V is written straight into pages; prefill attention runs the
-hand-written CUDA flash kernel on the card). Admitted requests are then
+A fixed set of ``n_slots`` slots. **Dense layout** (``paged=False``, the
+reference's default): every slot owns ``max_len`` rows of K/V and their
+positions, plus a sink row that no slot owns, where pad rows write. Queued
+requests are admitted into free slots, FIFO. **Paged layout**
+(``paged=True``): K/V live in pages of a shared store, mapped per slot by a
+block table, and queued requests are admitted while their worst-case page
+reservation fits the page budget.
+
+On an idle engine admitted requests are prefilled as whole prompts in
+batches grouped by padded length (the prompt K/V is written straight into
+the slots' rows or pages; prefill attention runs the hand-written CUDA
+flash kernel on the card). Admitted requests are then
 decoded in blocks of up to ``decode_block`` steps. Within a block
 every step runs on the device with no host round trip: per-lane
 positions, last tokens, generation counters and the live mask are device
@@ -13,20 +20,26 @@ tensors, and the finish rule (EOS, token budget, KV cap) is applied
 in-block. The host reads the block's tokens back with ONE device-to-host
 copy per block. The block length shrinks to the soonest deterministic
 finish (``_pick_k``), so a freed slot is refilled at the earliest step it
-can matter. Decode attention runs the hand-written CUDA paged-attention
-kernel on the card (``kernels/ops.py``); a CPU engine runs the kernels'
-plain versions.
+can matter. Paged decode attention runs the hand-written CUDA
+paged-attention kernel on the card (``kernels/ops.py``); dense decode
+attention is the reference's plain ``_sdpa`` over each lane's row, in
+PyTorch on the card too. A CPU engine runs the kernels' plain versions.
+On a dense engine every lane of a block writes its K/V at its position,
+dead or not, as in the reference; a bucket smaller than ``n_slots`` reads
+and writes its lanes' rows in place, its pad rows the sink row.
 
 **Chunked prefill** (``prefill_chunk > 0``): a request that arrives while
 lanes decode is not prefilled in a whole-prompt stall. It is admitted as a
 chunk task, and each step of the next blocks runs the decode step of
 every lane plus one ``prefill_chunk``-token chunk pass of its prompt
 (``models.model.prefill_chunk_step``; a pass past the last chunk has
-length 0 and writes only the trash page), with pages mapped per chunk.
+length 0 and writes only the sink row or the trash page), with pages
+mapped per chunk on a paged engine.
 The final chunk's first token and the lane's flip to live stay on the
 device, so first tokens arrive through the same one copy per block.
 
-**Radix prefix cache** (``prefix_cache=True``, DESIGN.md §13): the
+**Radix prefix cache** (``prefix_cache=True`` on a paged engine; a dense
+engine keeps none, as in the reference; DESIGN.md §13): the
 allocator indexes every full prompt page under a key chained on its
 prefix. A queued request whose prompt starts with indexed pages (Sprout's
 directive system prompt is the same at the head of every request of a
@@ -65,8 +78,8 @@ CUDA graph, captured at its first use and replayed after
 
 Host bookkeeping (admission, page growth, chunk schedule, finish order,
 block tables) follows the reference line for line, so on the same traffic
-the port maps the same pages and emits the same tokens, greedy or
-seeded. Still to port (ROADMAP.md): the dense layout, tensor parallelism
+the port fills the same rows or maps the same pages and emits the same
+tokens, greedy or seeded. Still to port (ROADMAP.md): tensor parallelism
 and fault injection into lanes.
 """
 from __future__ import annotations
@@ -173,15 +186,12 @@ class InferenceEngine:
         """Same signature as the reference engine plus ``device``.
         ``seed`` makes the host PRNG key (``prng.PRNGKey``, on the CPU)
         from which every sampled token is drawn. ``params`` must already
-        live on ``device``; the page store is allocated once and never
+        live on ``device``; the KV store is allocated once and never
         replaced, since every captured entry writes it in place."""
-        for flag, on, item in (
-                ("paged=False", not paged, "dense KV layout"),
-                ("tp_degree > 1", tp_degree > 1, "tensor-parallel decode")):
-            if on:
-                raise NotImplementedError(
-                    f"{flag}: not in the port yet (ROADMAP.md, modules still "
-                    f"to port: {item})")
+        if tp_degree > 1:
+            raise NotImplementedError(
+                "tp_degree > 1: not in the port yet (ROADMAP.md, modules "
+                "still to port: tensor-parallel decode)")
         if paged_impl != "auto":
             raise ValueError("paged_impl: the port dispatches decode attention "
                              "by tensor device; only 'auto' is accepted")
@@ -196,32 +206,39 @@ class InferenceEngine:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
-        # the only layout the port has; the gateway's migration planner
-        # reads it, as on the reference engine
-        self.paged = True
+        # the gateway's migration planner reads the layout, as on the
+        # reference engine
+        self.paged = paged
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos_id = eos_id
         self.decode_block = decode_block
         self.prefill_chunk = prefill_chunk
-        # every stack the port serves pages and chunks, so the cache needs
-        # nothing more (the reference's _prefix_ok)
-        self.prefix_cache = prefix_cache
+        # the cache rides the page store; every stack the port serves
+        # pages and chunks, so it needs nothing more (the reference's
+        # _prefix_ok). A dense engine keeps none, as the reference's does
+        self.prefix_cache = paged and prefix_cache
         self._task: Optional[_ChunkTask] = None
         self.tok = tokenizer or ByteTokenizer()
-        max_pages = (max_len + page_size - 1) // page_size
-        # default budget: the dense layout's worst-case footprint
-        n_pages = n_pages if n_pages is not None else n_slots * max_pages
-        self.pages = PageAllocator(n_pages=n_pages, page_size=page_size,
-                                   n_slots=n_slots, max_len=max_len,
-                                   prefix_cache=prefix_cache,
-                                   kv_salt=cfg.kv_cache_dtype)
-        # sum of slotted requests' admission-time reservations; the
-        # standing invariant _committed + pages.pinned <= n_pages means
-        # mid-decode page growth can never hit MemoryError
-        self._committed = 0
-        self.cache = MD.init_paged_cache(cfg, n_pages, page_size,
-                                         device=self.device)
+        if paged:
+            max_pages = (max_len + page_size - 1) // page_size
+            # default budget: the dense layout's worst-case footprint
+            n_pages = n_pages if n_pages is not None else n_slots * max_pages
+            self.pages = PageAllocator(n_pages=n_pages, page_size=page_size,
+                                       n_slots=n_slots, max_len=max_len,
+                                       prefix_cache=self.prefix_cache,
+                                       kv_salt=cfg.kv_cache_dtype)
+            # sum of slotted requests' admission-time reservations; the
+            # standing invariant _committed + pages.pinned <= n_pages
+            # means mid-decode page growth can never hit MemoryError
+            self._committed = 0
+            self.cache = MD.init_paged_cache(cfg, n_pages, page_size,
+                                             device=self.device)
+        else:
+            self.pages = None
+            # n_slots rows of max_len tokens, and the sink row n_slots
+            self.cache = MD.init_cache(cfg, n_slots, max_len,
+                                       device=self.device)
         # the host key: split once per prefill group and once per block
         # (never read from the card), as the reference's self.key
         self.key = prng.PRNGKey(seed)
@@ -282,13 +299,15 @@ class InferenceEngine:
                 f"max_new_tokens + 1 < max_len")
         if not prompt_ids:
             raise ValueError("empty prompt")
-        need = self._pages_for(
-            len(prompt_ids[: self.max_len - max_new_tokens - 1]),
-            max_new_tokens)
-        if need > self.pages.n_pages:
-            raise ValueError(
-                f"request needs {need} pages > page budget "
-                f"{self.pages.n_pages} (page_size={self.pages.page_size})")
+        if self.paged:
+            need = self._pages_for(
+                len(prompt_ids[: self.max_len - max_new_tokens - 1]),
+                max_new_tokens)
+            if need > self.pages.n_pages:
+                raise ValueError(
+                    f"request needs {need} pages > page budget "
+                    f"{self.pages.n_pages} (page_size="
+                    f"{self.pages.page_size})")
         if rid is None:
             rid = self._next_rid
             self._next_rid += 1
@@ -370,14 +389,15 @@ class InferenceEngine:
             ids = st.prompt_ids[: self.max_len - st.max_new_tokens - 1]
             if self.prefix_cache and self.pages.match_prefix(ids)[0] > 0:
                 break     # hits admit via the chunk task on a later call
-            need = self._pages_for(len(ids), st.max_new_tokens)
-            # pinned: shared pages charged to no reservation (0 without the
-            # prefix cache)
-            if (self._committed + need + self.pages.pinned
-                    > self.pages.n_pages):
-                break              # wait for pages to free up
-            self._committed += need
-            st.reserved_pages = need
+            if self.paged:
+                need = self._pages_for(len(ids), st.max_new_tokens)
+                # pinned: shared pages charged to no reservation (0 without
+                # the prefix cache)
+                if (self._committed + need + self.pages.pinned
+                        > self.pages.n_pages):
+                    break              # wait for pages to free up
+                self._committed += need
+                st.reserved_pages = need
             self.queue.pop(0)
             st.prompt_len = len(ids)
             taken.append((slot, st, ids))
@@ -393,15 +413,13 @@ class InferenceEngine:
     def _prefill_group(self, plen: int,
                        grp: List[Tuple[int, RequestState, List[int]]]) -> None:
         # padded to a power of two (at most log2(n_slots) + 1 shapes a
-        # prompt bucket); rows past a prompt's length, and pad rows, write to
-        # the trash page (index n_pages), which no block table maps
+        # prompt bucket); pad rows write to the sink row (dense) or the
+        # trash page (index n_pages, which no block table maps), and so do
+        # a paged row's positions past its prompt
         nb = len(grp)
         npad = _next_pow2(nb)
-        ps = self.pages.page_size
         toks = np.zeros((npad, plen), np.int64)
         lengths = np.ones(npad, np.int64)
-        page_ids = np.full((npad, plen), self.pages.n_pages, np.int64)
-        offs = np.zeros((npad, plen), np.int64)
         temps = np.zeros(npad, np.float32)
         topks = np.zeros(npad, np.int64)
         topps = np.ones(npad, np.float32)
@@ -411,17 +429,27 @@ class InferenceEngine:
             temps[b] = st.sampling.temperature
             topks[b] = st.sampling.top_k
             topps[b] = st.sampling.top_p
-            self.pages.ensure_capacity(slot, len(ids))
-            self.pages.lengths[slot] = len(ids)
-            t = np.arange(len(ids))
-            page_ids[b, : len(ids)] = self.pages.block_table[slot, t // ps]
-            offs[b, : len(ids)] = t % ps
+        if self.paged:
+            ps = self.pages.page_size
+            page_ids = np.full((npad, plen), self.pages.n_pages, np.int64)
+            offs = np.zeros((npad, plen), np.int64)
+            for b, (slot, st, ids) in enumerate(grp):
+                self.pages.ensure_capacity(slot, len(ids))
+                self.pages.lengths[slot] = len(ids)
+                t = np.arange(len(ids))
+                page_ids[b, : len(ids)] = self.pages.block_table[slot, t // ps]
+                offs[b, : len(ids)] = t % ps
+            dest = dict(page_ids=page_ids, offs=offs)
+        else:
+            slots = np.full(npad, self.n_slots, np.int64)
+            slots[:nb] = [slot for slot, _, _ in grp]
+            dest = dict(slots=slots)
         prefill = self._prefill_for(npad, plen)
         # the group draws its first tokens with its own split of the host
         # key, folded by row position in the group (ref engine.py:565)
         self.key, sk = prng.split(self.key)
-        out = prefill(toks=toks, lengths=lengths, page_ids=page_ids, offs=offs,
-                      temp=temps, topk=topks, topp=topps, key=sk.numpy())
+        out = prefill(toks=toks, lengths=lengths, **dest, temp=temps,
+                      topk=topks, topp=topps, key=sk.numpy())
         if self.prefix_cache:
             # index the full prompt pages the entry just wrote, so later
             # requests sharing this prefix adopt instead of recompute
@@ -459,26 +487,33 @@ class InferenceEngine:
     def _prefill_for(self, npad: int, plen: int) -> Entry:
         """The entry ``prefill_bs{npad}_p{plen}``: whole-prompt prefill of
         ``npad`` rows padded to ``plen`` tokens, writing each row's K/V
-        through its page ids, to each row's first token (npad,), drawn by
-        ``sample_logits_batched`` with the group's key and each row's
-        ``temp``, ``topk`` and ``topp`` (argmax where temp is 0, the pad
-        rows' value)."""
+        into its slot's row (``slots``; the whole row's positions reset, as
+        the reference's insert of a fresh row resets them) or through its
+        page ids (``page_ids``, ``offs``), to each row's first token
+        (npad,), drawn by ``sample_logits_batched`` with the group's key
+        and each row's ``temp``, ``topk`` and ``topp`` (argmax where temp
+        is 0, the pad rows' value)."""
         name = f"prefill_bs{npad}_p{plen}"
         if name not in self.entry_points:
             cfg, params, cache = self.cfg, self.params, self.cache
 
-            def prefill(toks, lengths, page_ids, offs, temp, topk, topp, key):
+            def prefill(toks, lengths, temp, topk, topp, key, slots=None,
+                        page_ids=None, offs=None):
+                to = ((slots, MD.kpos_of(lengths, plen)) if slots is not None
+                      else (page_ids, offs))
                 logits = MD.prefill_last(cfg, params, toks, lengths, cache=cache,
-                                         prompt_pages=(page_ids, offs))
+                                         prompt_to=to)
                 return sample_logits_batched(logits, key, temp, topk, topp)
 
-            self.entry_points[name] = Entry(name, prefill, {
-                "toks": ((npad, plen), 0), "lengths": ((npad,), 1),
-                "page_ids": ((npad, plen), self.pages.n_pages),
-                "offs": ((npad, plen), 0),
-                "temp": ((npad,), 0.0, torch.float32), "topk": ((npad,), 0),
-                "topp": ((npad,), 1.0, torch.float32), "key": ((2,), 0)},
-                self.graphs)
+            layout = {"toks": ((npad, plen), 0), "lengths": ((npad,), 1)}
+            if self.paged:
+                layout.update(page_ids=((npad, plen), self.pages.n_pages),
+                              offs=((npad, plen), 0))
+            else:
+                layout["slots"] = ((npad,), self.n_slots)
+            layout.update(temp=((npad,), 0.0, torch.float32), topk=((npad,), 0),
+                          topp=((npad,), 1.0, torch.float32), key=((2,), 0))
+            self.entry_points[name] = Entry(name, prefill, layout, self.graphs)
         return self.entry_points[name]
 
     def _admit_chunk_task(self, slot: int) -> None:
@@ -505,15 +540,16 @@ class InferenceEngine:
                 cached_tokens = min(m * self.pages.page_size, len(ids) - 1)
                 cow = 1 if m * self.pages.page_size > cached_tokens else 0
                 adopted = pids
-        need = self._pages_for(len(ids), st.max_new_tokens,
-                               cached_pages=len(adopted), cow_pages=cow)
-        # shared pages are paid for once: the pinned ones, and the cached
-        # ones this adoption would pin, join the reservations in the gate
-        if (self._committed + need + self.pages.pinned + newly_pinned
-                > self.pages.n_pages):
-            return                 # wait for pages to free up (FIFO)
-        self._committed += need
-        st.reserved_pages = need
+        if self.paged:
+            need = self._pages_for(len(ids), st.max_new_tokens,
+                                   cached_pages=len(adopted), cow_pages=cow)
+            # shared pages are paid for once: the pinned ones, and the
+            # cached ones this adoption would pin, join the reservations
+            if (self._committed + need + self.pages.pinned + newly_pinned
+                    > self.pages.n_pages):
+                return                 # wait for pages to free up (FIFO)
+            self._committed += need
+            st.reserved_pages = need
         self.queue.pop(0)
         st.prompt_len = len(ids)
         st.slot = slot
@@ -532,7 +568,8 @@ class InferenceEngine:
         self.max_new[slot] = st.max_new_tokens
         self._set_sampling(slot, st.sampling)
         # a prefix engine admits hits here with prefill_chunk == 0: it
-        # streams page_size-token chunks
+        # streams page_size-token chunks (a dense engine has no prefix
+        # cache, so its prefill_chunk is set)
         self._task = _ChunkTask(slot=slot, ids=ids, plen=len(ids),
                                 next=cached_tokens,
                                 chunk=self.prefill_chunk or self.pages.page_size)
@@ -562,8 +599,9 @@ class InferenceEngine:
             st.t_done, st.retries, st.cached_tokens))
         self.slots[slot] = None
         self.live[slot] = False
-        self.pages.release(slot)
-        self._committed -= st.reserved_pages
+        if self.paged:
+            self.pages.release(slot)
+            self._committed -= st.reserved_pages
 
     # the block's sampler by mode (ref engine.py:702-704)
     _SAMPLE_FNS = {"greedy": greedy_sample,
@@ -577,9 +615,16 @@ class InferenceEngine:
         (``engine.py:705-824``). Returns (entry, was-already-warm).
 
         Inputs, one row per lane: ``last``, ``pos``, ``gc``, ``max_new``,
-        ``live`` (bs,) and the block-table rows ``bt`` (bs, max_pages).
-        Pad rows are dead, with table rows of -1, so their writes go to the
-        trash page. A mixed block adds the chunk arrays ``ctoks`` (k, C),
+        ``live`` (bs,), and on a paged engine the block-table rows ``bt``
+        (bs, max_pages), on a dense one the lanes' slot ids ``rows`` (bs,),
+        their store rows. Pad rows are dead, with table rows of -1 (their
+        writes go to the trash page) or slot id n_slots (the sink row).
+        A dense bucket as large as ``n_slots`` has ``rows`` 0..n_slots-1
+        (the sink row in capture's dead inputs) and reads the store in
+        place; a smaller one reads its rows through ``rows`` and writes them
+        in place, where the reference gathers the store's rows on entry and
+        scatters them back on exit. A mixed block adds the chunk arrays
+        ``ctoks`` (k, C),
         ``cpos0``, ``clen``, ``cfin`` (k,) and the chunk lane ``lane``
         (0-dim): step s runs the chunk pass of row s (length 0 past the
         last chunk), and on the final chunk samples the request's first
@@ -590,7 +635,8 @@ class InferenceEngine:
         ``mode`` is the host's choice of sampler over the bucket's rows:
         ``greedy`` has no sampler and no sampling input; ``temp`` and
         ``full`` add each row's ``temp``, ``topk``, ``topp``, its slot id
-        ``rows`` (pad rows n_slots) and the block's ``key``. Each step
+        ``rows`` (pad rows n_slots; a dense engine has it already) and the
+        block's ``key``. Each step
         splits the carried key in two (three in a mixed block: the third
         draws the chunk lane's first token, folded by its slot id); the
         decode rows fold by slot id when the bucket is smaller than
@@ -605,11 +651,14 @@ class InferenceEngine:
             sampled = mode != "greedy"
             bucketed = bs < self.n_slots
             has_chunk = chunk_c > 0
+            paged = self.paged
 
-            def fused(last, pos, gc, max_new, live, bt, ctoks=None, cpos0=None,
-                      clen=None, cfin=None, lane=None, temp=None, topk=None,
-                      topp=None, rows=None, key=None):
-                live, bt = live != 0, bt.to(torch.int32)
+            def fused(last, pos, gc, max_new, live, bt=None, rows=None,
+                      ctoks=None, cpos0=None, clen=None, cfin=None, lane=None,
+                      temp=None, topk=None, topp=None, key=None):
+                live = live != 0
+                if paged:
+                    bt = bt.to(torch.int32)
                 sampling = (temp, topk, topp) if sampled else ()
                 fold = rows if sampled and bucketed else None
                 sk = ck = None
@@ -619,6 +668,8 @@ class InferenceEngine:
                     lane_max_new = max_new.index_select(0, at)
                     lane_sampling = tuple(x.index_select(0, at) for x in sampling)
                     lane_fold = rows.index_select(0, at) if sampled else None
+                    # the chunk's store row (dense) or block-table row
+                    chunk_row = at if paged else rows.index_select(0, at)
                 toks, emitted = [], []
                 for s in range(k):
                     if sampled:
@@ -626,9 +677,13 @@ class InferenceEngine:
                         key, sk = keys[0], keys[1]
                         if has_chunk:
                             ck = keys[2]
+                    # the page store takes the step's live mask; a dense
+                    # lane writes dead or not, as in the reference
+                    store = (dict(block_table=bt, live=live) if paged
+                             else dict(rows=rows, in_place=not bucketed))
                     nxt = MD.decode_sample_step(
                         cfg, params, last[:, None], pos, cache, sk, sampling,
-                        sample_fn, block_table=bt, live=live, fold_ids=fold)
+                        sample_fn, fold_ids=fold, **store)
                     nxt = torch.where(live, nxt, last)
                     pos2 = torch.where(live, pos + 1, pos)
                     gc2 = torch.where(live, gc + 1, gc)
@@ -640,8 +695,8 @@ class InferenceEngine:
                     emit_t, emit_v = nxt, live
                     if has_chunk:
                         logits = MD.prefill_chunk_step(
-                            cfg, params, ctoks[s], cpos0[s], clen[s], lane, cache,
-                            block_table=bt)
+                            cfg, params, ctoks[s], cpos0[s], clen[s], chunk_row,
+                            cache, block_table=bt)
                         # the first token and the lane's flip to live stay
                         # on the device; they reach the host with the block
                         first = sample_fn(logits[None], ck, *lane_sampling,
@@ -663,17 +718,57 @@ class InferenceEngine:
                                   live.long()[None]])
 
             layout = {"last": ((bs,), 0), "pos": ((bs,), 0), "gc": ((bs,), 0),
-                      "max_new": ((bs,), 1), "live": ((bs,), 0),
-                      "bt": ((bs, self.pages.max_pages), -1)}
+                      "max_new": ((bs,), 1), "live": ((bs,), 0)}
+            if paged:
+                layout["bt"] = ((bs, self.pages.max_pages), -1)
+            if not paged or sampled:
+                layout["rows"] = ((bs,), self.n_slots)
             if has_chunk:
                 layout.update(ctoks=((k, chunk_c), 0), cpos0=((k,), 0),
                               clen=((k,), 0), cfin=((k,), 0), lane=((), 0))
             if sampled:
                 layout.update(temp=((bs,), 0.0, torch.float32), topk=((bs,), 0),
-                              topp=((bs,), 1.0, torch.float32),
-                              rows=((bs,), self.n_slots), key=((2,), 0))
+                              topp=((bs,), 1.0, torch.float32), key=((2,), 0))
             self.entry_points[name] = Entry(name, fused, layout, self.graphs)
         return self.entry_points[name], warm
+
+    def _grow_pages(self, k: int, task: Optional[_ChunkTask], nxt_p: int,
+                    finishing: bool) -> None:
+        """A paged block's page work before it runs: copy-on-write of shared
+        pages its appends land in, and page growth to cover its appends."""
+        if self.prefix_cache:
+            # copy-on-write before this block's appends: a write landing in
+            # a shared or adopted page remaps the lane onto a fresh page and
+            # copies the contents first. Only the 1-token recompute of a
+            # fully cached page-aligned prompt fires it (its admission
+            # budgeted the page); decode appends land past the shared span
+            targets = [(int(i), int(self.positions[i]))
+                       for i in np.nonzero(self.live)[0]]
+            if task is not None:
+                targets.append((task.slot, task.next))
+            for tslot, tpos in targets:
+                cw = self.pages.prepare_append(tslot, tpos)
+                if cw is not None:
+                    self._copy_page(*cw)
+        # grow each live slot's page map to cover this block's appends
+        # (bounded by the slot's own cap, so growth never exceeds the
+        # admission-time reservation and can never throw here)
+        for i in np.nonzero(self.live)[0]:
+            st = self.slots[i]
+            self.pages.ensure_capacity(
+                int(i), min(int(self.positions[i]) + k,
+                            self._slot_cap(st.prompt_len, st.max_new_tokens)))
+        if task is not None:
+            # per-chunk page growth: map only what this block writes
+            # (prompt chunks, plus up to k decode appends after an
+            # in-block transition) instead of the whole prompt at once
+            st = self.slots[task.slot]
+            tgt = min(nxt_p + (k if finishing else 0),
+                      self._slot_cap(st.prompt_len, st.max_new_tokens))
+            self.pages_grown_chunked += self.pages.ensure_capacity(
+                task.slot, tgt)
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.pages.pages_in_use())
 
     def _pick_k(self) -> int:
         """Block length: the power-of-two ceiling of the soonest
@@ -698,8 +793,9 @@ class InferenceEngine:
         self._try_prefill()
         self.peak_concurrent = max(
             self.peak_concurrent, sum(s is not None for s in self.slots))
-        self.peak_pages_in_use = max(self.peak_pages_in_use,
-                                     self.pages.pages_in_use())
+        if self.paged:
+            self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                         self.pages.pages_in_use())
         task = self._task
         if not self.live.any() and task is None:
             return 0
@@ -752,43 +848,10 @@ class InferenceEngine:
             mode = "full"
         else:
             mode = "temp"
-        if self.prefix_cache:
-            # copy-on-write before this block's appends: a write landing in
-            # a shared or adopted page remaps the lane onto a fresh page and
-            # copies the contents first. Only the 1-token recompute of a
-            # fully cached page-aligned prompt fires it (its admission
-            # budgeted the page); decode appends land past the shared span
-            targets = [(int(i), int(self.positions[i]))
-                       for i in np.nonzero(self.live)[0]]
-            if task is not None:
-                targets.append((task.slot, task.next))
-            for tslot, tpos in targets:
-                cw = self.pages.prepare_append(tslot, tpos)
-                if cw is not None:
-                    self._copy_page(*cw)
-        # grow each live slot's page map to cover this block's appends
-        # (bounded by the slot's own cap, so growth never exceeds the
-        # admission-time reservation and can never throw here)
-        for i in np.nonzero(self.live)[0]:
-            st = self.slots[i]
-            self.pages.ensure_capacity(
-                int(i), min(int(self.positions[i]) + k,
-                            self._slot_cap(st.prompt_len, st.max_new_tokens)))
-        if task is not None:
-            # per-chunk page growth: map only what this block writes
-            # (prompt chunks, plus up to k decode appends after an
-            # in-block transition) instead of the whole prompt at once
-            st = self.slots[task.slot]
-            tgt = min(nxt_p + (k if finishing else 0),
-                      self._slot_cap(st.prompt_len, st.max_new_tokens))
-            self.pages_grown_chunked += self.pages.ensure_capacity(
-                task.slot, tgt)
-        self.peak_pages_in_use = max(self.peak_pages_in_use,
-                                     self.pages.pages_in_use())
+        if self.paged:
+            self._grow_pages(k, task, nxt_p, finishing)
         # ----- the bucket's inputs, gathered from the host mirrors ------
         real = rows_full < self.n_slots
-        bt = np.full((bs, self.pages.max_pages), -1, np.int64)
-        bt[real] = self.pages.block_table[rows_full[real]]
 
         def gath(a, fill, dtype=np.int64):
             out = np.full(bs, fill, dtype)
@@ -800,7 +863,13 @@ class InferenceEngine:
         self.key, bk = prng.split(self.key)
         inputs = dict(last=gath(self.last_token, 0), pos=gath(self.positions, 0),
                       gc=gath(self.gen_count, 0), max_new=gath(self.max_new, 1),
-                      live=gath(self.live, 0), bt=bt)
+                      live=gath(self.live, 0))
+        if self.paged:
+            bt = np.full((bs, self.pages.max_pages), -1, np.int64)
+            bt[real] = self.pages.block_table[rows_full[real]]
+            inputs["bt"] = bt
+        if not self.paged or mode != "greedy":
+            inputs["rows"] = rows_full
         if task is not None:
             inputs.update(ctoks=ctoks, cpos0=cpos0, clen=clen, cfin=cfin,
                           lane=int(np.searchsorted(rows_full, task.slot)))
@@ -808,7 +877,7 @@ class InferenceEngine:
             inputs.update(temp=gath(self.temp, 0.0, np.float32),
                           topk=gath(self.top_k, 0),
                           topp=gath(self.top_p, 1.0, np.float32),
-                          rows=rows_full, key=bk.numpy())
+                          key=bk.numpy())
         fn, warm = self._fused_for(k, mode, bs, chunk_c)
         t_dec = time.monotonic()
         out = fn(**inputs)
@@ -847,7 +916,8 @@ class InferenceEngine:
             self.decode_tokens += len(news)
             self.gen_count[i] += len(news)
             self.positions[i] += len(news)
-            self.pages.lengths[i] = self.positions[i]
+            if self.paged:     # live tokens in pages == appended positions
+                self.pages.lengths[i] = self.positions[i]
             if news:
                 self.last_token[i] = news[-1]
             self.live[i] = bool(live_final[b])
@@ -870,8 +940,9 @@ class InferenceEngine:
                     # pages (adopted ones are indexed already)
                     self.pages.register_prefix(i, task.ids)
                 self._task = None
-            self.pages.lengths[i] = (int(self.positions[i]) if finishing
-                                     else task.next)
+            if self.paged:
+                self.pages.lengths[i] = (int(self.positions[i]) if finishing
+                                         else task.next)
         # finish in (step-within-block, slot) order so completion order is
         # identical to single-step execution
         for _, i in sorted(finish_order):
@@ -896,8 +967,9 @@ class InferenceEngine:
                 out.append(st)
                 self.slots[i] = None
                 self.live[i] = False
-                self.pages.release(i)
-                self._committed -= st.reserved_pages
+                if self.paged:
+                    self.pages.release(i)
+                    self._committed -= st.reserved_pages
                 st.reserved_pages = 0
                 st.cached_tokens = 0
         # a mid-prefill chunk task leaves with its slot; its prompt ids are
@@ -907,9 +979,10 @@ class InferenceEngine:
 
     def evict(self, rid: int) -> Optional[RequestState]:
         """Pull ONE request out of the engine for requeue: queued requests
-        are unqueued; a slotted one releases its slot, pages and admission
-        reservation. Generated-so-far tokens are discarded. ``None`` if the
-        rid is unknown or already finished."""
+        are unqueued; a slotted one releases its slot (and on a paged
+        engine its pages and admission reservation). Generated-so-far
+        tokens are discarded. ``None`` if the rid is unknown or already
+        finished."""
         for j, st in enumerate(self.queue):
             if st.rid == rid:
                 return self.queue.pop(j)
@@ -919,8 +992,9 @@ class InferenceEngine:
                 st.generated = []
                 self.slots[i] = None
                 self.live[i] = False
-                self.pages.release(i)
-                self._committed -= st.reserved_pages
+                if self.paged:
+                    self.pages.release(i)
+                    self._committed -= st.reserved_pages
                 st.reserved_pages = 0
                 st.cached_tokens = 0
                 if self._task is not None and self._task.slot == i:
@@ -936,11 +1010,23 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     def kv_stats(self) -> Dict[str, float]:
-        """KV-memory telemetry: allocator occupancy/fragmentation plus bytes
-        mapped (pages_in_use x page_bytes, across every layer's store).
-        Capacity is the page budget's bytes, as on the reference engine:
-        the trash page, which no request can map, is not capacity."""
+        """KV-memory telemetry, as the reference engine reports it. A paged
+        engine: allocator occupancy/fragmentation plus bytes mapped
+        (pages_in_use x page_bytes, across every layer's store), with the
+        page budget's bytes as capacity (the trash page, which no request
+        can map, is not capacity). A dense engine: its fixed n_slots x
+        max_len footprint, every leaf (``kpos`` too) without the sink row,
+        which no slot owns."""
         leaves = [x for seg in self.cache for x in seg.values()]
+        if not self.paged:
+            total = sum(x[:, :self.n_slots].numel() * x.element_size()
+                        for x in leaves)
+            live = int(sum(self.positions[i] for i, s in enumerate(self.slots)
+                           if s is not None))
+            return {"layout": "dense", "kv_bytes_capacity": total,
+                    "kv_bytes_in_use": total, "live_tokens": live,
+                    "pages_in_use": 0, "occupancy": 1.0,
+                    "fragmentation": 0.0}
         page_bytes = sum(x[:, 0].numel() * x.element_size() for x in leaves)
         rep = self.pages.report()
         rep.update(layout="paged", page_bytes=page_bytes,

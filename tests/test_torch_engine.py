@@ -95,8 +95,7 @@ def test_page_budget_gates_admission_not_completion(models):
         small.submit(tok.encode("x" * 40), max_new_tokens=20)  # needs 4 pages
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(paged=False), dict(paged=True, tp_degree=2)])
+@pytest.mark.parametrize("kwargs", [dict(paged=True, tp_degree=2)])
 def test_options_not_yet_ported_raise(models, kwargs):
     _, cfg, _, params = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -376,3 +376,57 @@ def test_entry_stages_every_input_through_one_buffer():
         entry(a=np.zeros((2, 3)))
     with pytest.raises(ValueError, match="dtype"):
         Entry("test", fn, {"a": ((2,), 0, torch.int32)}, GraphPool(torch.device("cpu")))
+
+
+# ----------------------------------------------------------------------
+# the dense layout's entries (``paged=False``, the reference's default)
+# ----------------------------------------------------------------------
+
+def _populated_dense(models, kv_int8):
+    """A dense CPU engine whose store holds seeded K/V, scales and
+    positions in every row (a state any traffic could leave), so that a
+    stray write shows."""
+    _, cfg, _, params = models
+    eng = InferenceEngine(cfg, params, device="cpu", n_slots=4, max_len=96,
+                          decode_block=4, kv_int8=kv_int8)
+    gen = torch.Generator().manual_seed(3)
+    for seg in eng.cache:
+        for name, x in seg.items():
+            if name == "kpos":
+                x.copy_(torch.arange(x.shape[-1]).expand_as(x))
+            elif x.dtype == torch.int8:
+                x.copy_(torch.randint(-127, 128, x.shape, generator=gen))
+            else:
+                x.copy_(torch.rand(x.shape, generator=gen) + 0.5)
+    return eng
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_dense_entry_bodies_read_no_host_value(models, kind):
+    """The dense entries' callables, on live lanes naming real slot rows
+    (a chunk lane that writes, sampled rows in a bucket of 2 that fold by
+    slot id), run no op that reads a device value back to the host and
+    index by no boolean mask, so the card can capture them."""
+    eng = _populated_dense(models, False)
+    sampled = kind != "prefill" and KINDS[kind][0] != "greedy"
+    entry = _entry(eng, kind, bs=2 if sampled else 4)
+    values = dict(entry.dead)
+    if kind == "prefill":
+        values.update(slots=np.array([1, 3, 0, 4]), lengths=np.array([32, 20, 7, 1]))
+    else:
+        n = entry.host["live"].shape[0]
+        values.update(rows=np.array([2, 0]) if n == 2 else np.arange(n),
+                      live=np.ones(n, np.int64), pos=np.arange(n) + 30)
+    if kind in ("mixed", "mixed_full"):
+        values.update(clen=np.array([8, 3, 0, 0]), lane=1, cfin=np.array([0, 1, 0, 0]))
+    if "key" in values:
+        n = entry.host["temp"].shape[0]
+        values.update(temp=np.linspace(0.5, 1.2, n, dtype=np.float32),
+                      topk=np.arange(n) * 20, topp=np.full(n, 0.9, np.float32),
+                      key=np.array([12345, 678]))
+    entry.stage_inputs(**values)
+    with _Ops() as ops:
+        entry.run()
+    names = {name for name, _ in ops.seen}
+    assert names and not names & SYNCING, names & SYNCING
+    assert not [name for name, args in ops.seen if _bool_indexed(name, args)]

@@ -3,7 +3,9 @@ package's (``repro.launch.serve``): ``run_gateway`` of both, given the same
 arguments and the same weights (the reference's params and their
 ``params_from_jax`` copy), prints the same lines. Flags the port cannot
 serve yet raise ``NotImplementedError`` naming their ROADMAP.md item, and
-nothing falls back from the card to the CPU. ``--prefix-cache`` serves."""
+nothing falls back from the card to the CPU. ``--prefix-cache`` serves,
+and without ``--paged`` raises; without ``--paged`` the CLI serves dense
+engines, as the reference's does."""
 import jax
 import numpy as np
 import pytest
@@ -65,14 +67,44 @@ def test_run_gateway_prints_the_reference_lines(weights, extra, capsys):
 @pytest.mark.parametrize("argv, item", [
     (["--gateway", "--paged", "--chaos"], "item 4"),
     (["--gateway", "--paged", "--tp-degree", "2"], "item 7"),
-    (["--gateway"], "item 6"),
     (["--paged", "--arch", "command_r_plus_104b"], "item 10"),
     (["--paged", "--arch", "deepseek_v2_lite"], "item 10"),
-    (["--paged", "--arch", "starcoder2_15b"], "item 6"),
-], ids=["chaos", "tp-degree", "dense", "layernorm", "other", "windowed-dense"])
+    (["--paged", "--arch", "starcoder2_15b"], "item 10.*sliding window"),
+], ids=["chaos", "tp-degree", "layernorm", "other", "windowed-dense"])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         serve.parse_args(["--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("extra", [["--prefill-chunk", "8"]], ids=["dense-chunked"])
+def test_run_gateway_without_paged_prints_the_reference_lines(weights, extra, capsys):
+    """Without ``--paged`` both CLIs serve the dense layout (the reference's
+    default), and print the same lines: the kv telemetry reports each
+    pool's fixed dense footprint."""
+    jcfg, jp, cfg, params = weights
+    # one replica a pool: the dense engines' lines, at half the engines
+    argv = [a for a in BASE if a != "--paged"]
+    argv[argv.index("--replicas") + 1] = "1"
+    args = serve.parse_args(argv + extra)
+    assert not args.paged
+    jserve.run_gateway(args, jcfg, jp)
+    want = capsys.readouterr().out.splitlines()
+    gw = serve.run_gateway(args, cfg, params)
+    got = capsys.readouterr().out.splitlines()
+    assert got == want
+    assert gw.stats.requests == 8 and gw.stats.rejected == 0
+    engines = [e for pool in gw.pools for e in pool.scheduler.engines]
+    assert len(engines) == 2 and not any(e.paged for e in engines)
+    assert all(e.kv_stats()["layout"] == "dense" for e in engines)
+    assert all(e.chunked_admission == ("--prefill-chunk" in extra) for e in engines)
+
+
+def test_prefix_cache_without_paged_raises():
+    """The reference's ``--prefix-cache`` requires ``--paged`` (its engine
+    drops the cache on a dense store); the port refuses the pair instead
+    of dropping a flag."""
+    with pytest.raises(ValueError, match=r"requires --paged"):
+        serve.parse_args(["--device", "cpu", "--gateway", "--prefix-cache"])
 
 
 def test_default_arch_is_the_papers_model():
@@ -127,6 +159,21 @@ def test_card_is_asked_for_and_never_replaced(monkeypatch):
 ], ids=["gateway-int8-chunked", "scheduler", "gateway-prefix-cache"])
 def test_main_serves_on_the_cpu(argv, capsys):
     serve.main(["--device", "cpu", "--paged"] + argv)
+    _check_main_lines(argv, capsys)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--gateway", "--regions", "CA", "--hours", "1", "--requests", "3",
+     "--replicas", "1", "--kv-int8", "--prefill-chunk", "8"],
+    ["--hours", "2", "--requests", "3", "--replicas", "1"],
+], ids=["gateway-int8-chunked", "scheduler"])
+def test_main_serves_dense_on_the_cpu(argv, capsys):
+    """``main`` without ``--paged``: dense engines, every request served."""
+    serve.main(["--device", "cpu"] + argv)
+    _check_main_lines(argv, capsys)
+
+
+def _check_main_lines(argv, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("hour 0:")
     assert not any(ln.startswith("rejected") for ln in out)

@@ -22,7 +22,12 @@ Phases; any failure raises and the script exits non-zero:
                RMSNorm at d 4096 and 5120 (and minicpm's 2304), paged
                attention at llama2-13b's 40 heads of 128. bf16 flash
                outputs are held to one bf16 ulp of the output scale (and
-               2e-2) on under 1 % of the outputs (fp32 P·V).
+               2e-2) on under 1 % of the outputs (fp32 P·V). A poisoned
+               slot through the paged kernel at llama2-13b's heads (its
+               pages NaN in bf16, its scales NaN in int8; at one split and
+               at several): that slot's outputs all non-finite, every other
+               slot bit-equal to the clean call, the plain version
+               non-finite in the same rows.
   4. sampler - jax's threefry key stream (``serving/prng.py``) and the
                sampler on the card against jax.random's known answers:
                threefry2x32(0, 0), split, fold_in, bits, uniform, and
@@ -52,7 +57,17 @@ Phases; any failure raises and the script exits non-zero:
                chunked drive; card and CPU give the same tokens and entry
                names, and the card's store holds the CPU's kpos on every
                slot row and K/V within 1e-5 where kpos is valid (int8:
-               codes at most one apart, on under 1e-3 of them).
+               codes at most one apart, on under 1e-3 of them). Then lane
+               poison and recovery (``small_faults``): eight requests
+               through CarbonAwareScheduler with decode.nonfinite armed at
+               two lanes, on dense (whole-prompt, chunked), paged (fp32,
+               int8) and prefix-cache engines (one poisoned lane maps
+               adopted pages); every request served, every fill lane-only,
+               nothing non-finite left, the card quarantining exactly the
+               poisoned lanes and giving the CPU's tokens (dense: the
+               CPU's quarantines and store too). Then Sprout's chaos
+               scenario (``serving/chaos.py``) on the card: every
+               invariant, report and digest equal to the CPU's.
   6. serve   - the main path: full-width llama2-13b, the paper's model, in
                bf16 (random weights from a seed; each model's weights are
                freed before the next is drawn) served through
@@ -120,7 +135,15 @@ Phases; any failure raises and the script exits non-zero:
                the ledger clean at drain, and the share of streams identical
                to the bf16 run's printed beside the chunked run's (bf16: a
                hit's suffix, like a chunk, is computed by the chunk pass,
-               not by flash, so a near-tie may part).
+               not by flash, so a near-tie may part). The paged bf16, paged
+               int8 and dense bf16 runs of llama2-13b then drive the
+               traffic once more with decode.nonfinite armed at lanes 0
+               and 5 (``fault_drive``): the verdict quarantines exactly
+               the poisoned lanes, every request is served, each poison
+               and scrub writes only its lane (its pages or row read NaN,
+               then 0, in every float leaf; everything else byte-equal),
+               nothing non-finite is left, launches are held as above;
+               poison and scrub times printed.
   7. graphs  - inside each run's profile, one block (a decode block; a mixed
                block in the chunked runs, greedy and sampled) is run
                twice from one state: the
@@ -165,6 +188,10 @@ Phases; any failure raises and the script exits non-zero:
                zeroed before and read after, and held to its engines'
                forward passes (paged attention 0 on dense engines) and to
                the kernel nodes its replays ran; no plain version may run.
+               Then both with ``--chaos --migrate`` in place of
+               ``--prefix-cache`` (the reference's default fault script:
+               one fault of every class against CA): the chaos line
+               printed, at least one fault recovered, nothing stranded.
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and {"ok": true, "device": {...}}.
 """
@@ -457,6 +484,93 @@ def paged_phase():
                   f"plain_ms={plain_ms:.4f} issue_us={host_us:.1f} "
                   f"bound_ms={bound_ms:.5f} ({bound_by}) share={bound_ms / ms:.3f}")
     return rows
+
+
+# (B, max_pages, lengths, poisoned slots) of the poisoned-slot checks at
+# llama2-13b's heads (H = KVH 40, D 128, page 32, 257 pages): one split (a
+# 4-page table), two splits (the main geometry) and seven (two slots)
+POISON_SHAPES = {
+    "one split": (8, 4, [1, 31, 32, 33, 64, 100, 127, 128], (3, 7)),
+    "main": (8, 32, MAIN_LENGTHS, (3, 6)),
+    "B=2": (2, 32, [900, 77], (0, 1)),
+}
+
+
+def paged_poison_phase():
+    """A poisoned slot through the paged kernel at llama2-13b's heads, bf16
+    and int8 KV, at one split and at several: slot b's pages (bf16: K and
+    V; int8: the scales, as the engine's fill leaves codes alone) are NaN,
+    and the tables of the slots map disjoint pages. Every output element of
+    slot b must be non-finite, every other slot's bit-equal to the clean
+    call's. The plain version must be non-finite in slot b, and also in
+    every slot whose table has an unmapped entry when slot b holds page 0
+    (it reads such entries clamped to page 0, as the reference's does; the
+    kernel reads only a slot's pages below its length). Returns the checks'
+    n_splits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import _n_sm, paged_attention, split_plan
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    H = KVH = 40
+    D, page, P = 128, 32, 257
+    out = []
+    for name, (B, max_pages, lengths, poisoned) in POISON_SHAPES.items():
+        n_splits = split_plan(B, KVH, max_pages, page, _n_sm(0))[1]
+        perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
+        bt = torch.full((B, max_pages), -1, dtype=torch.int32)
+        used = 0
+        for b, L in enumerate(lengths):
+            n = -(-L // page)
+            bt[b, :n] = perm[used:used + n]
+            used += n
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        bt = bt.cuda()
+        for kind in ("bf16", "int8"):
+            q = torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+            k = torch.randn(P, page, KVH, D, generator=gen, device="cuda")
+            v = torch.randn(P, page, KVH, D, generator=gen, device="cuda")
+            if kind == "int8":
+                (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            else:
+                k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+            clean = paged_attention(q, k, v, bt, ln, ks, vs)
+            for b in poisoned:
+                pages = bt[b][bt[b] >= 0].long()
+                leaves = (ks, vs) if kind == "int8" else (k, v)
+                saved = [x[pages].clone() for x in leaves]
+                for x in leaves:
+                    x.index_fill_(0, pages, float("nan"))
+                got = paged_attention(q, k, v, bt, ln, ks, vs)
+                want = ref.paged_attention_ref(q, k, v, bt, ln, ks, vs)
+                torch.cuda.synchronize()
+                for x, old in zip(leaves, saved):
+                    x[pages] = old
+                label = f"paged poison {name} {kind} slot {b} (n_splits {n_splits})"
+                others = torch.arange(B, device="cuda") != b
+                check(not bool(torch.isfinite(got[b]).any()),
+                      f"{label}: {int(torch.isfinite(got[b]).sum())} finite outputs "
+                      "in the poisoned slot")
+                check(torch.equal(got[others].view(torch.int16),
+                                  clean[others].view(torch.int16)),
+                      f"{label}: another slot's output moved")
+                # the plain version (the reference's XLA path) reads every
+                # unmapped entry clamped to page 0 at masked positions,
+                # where 0 x NaN is NaN: if the slot holds page 0, each slot
+                # with an unmapped entry goes non-finite there too
+                bad_p = ~others
+                if bool((pages == 0).any()):
+                    bad_p = bad_p | (bt < 0).any(-1)
+                rows_p = ~torch.isfinite(want).all(-1).all(-1)
+                check(torch.equal(rows_p, bad_p), f"{label}: non-finite rows "
+                      f"{rows_p.tolist()} in the plain version, {bad_p.tolist()} expected")
+                out.append((name, kind, b, n_splits, lengths[b], int(bad_p.sum())))
+    print(f"kernel paged_attention poisoned slots at llama2-13b's heads (H = KVH 40, D 128): "
+          f"{len(out)} checks (shape, KV, slot, n_splits, its length, slots non-finite in "
+          f"the plain version) {out}: each poisoned slot's outputs all non-finite, every "
+          f"other slot bit-equal to the clean call; the plain version non-finite in the "
+          f"poisoned slot, and in every slot with an unmapped entry where the poisoned "
+          f"slot holds page 0")
+    return sorted({row[3] for row in out})
 
 
 def rmsnorm_phase():
@@ -767,6 +881,308 @@ def small_phase(arch):
     small_prefix(cfg, cpu_params, gpu_params)
     small_sampled(cfg, cpu_params, gpu_params)
     small_dense(cfg, cpu_params, gpu_params)
+    t0 = time.monotonic()
+    small_faults(cfg, cpu_params, gpu_params)
+    print(f"small faults reduced {cfg.name}: {time.monotonic() - t0:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# fault injection and recovery: the fill's checks and the poison drives
+# ----------------------------------------------------------------------
+
+def lane_rows(eng, slot):
+    """The store rows a fill of ``slot`` must write: its row (dense) or the
+    pages its table maps (with the prefix cache only those it owns alone),
+    and the store's row count (the sink row or the trash page included)."""
+    if not eng.paged:
+        return [slot], eng.n_slots + 1
+    al = eng.pages
+    keep = al.block_table[slot] >= 0
+    if eng.prefix_cache:
+        keep &= al.exclusive_pages(slot)
+    return sorted(int(p) for p in al.block_table[slot][keep]), al.n_pages + 1
+
+
+def checked_fills(eng, record):
+    """Wrap the engine's ``_fill_lane`` (poison and scrub): time each fill
+    alone, then check it wrote ``value`` into every float leaf of exactly
+    the lane's row or pages and left every other byte of the store (the
+    sink row or the trash page, ``kpos``, int8 codes) as it was, layer by
+    layer. Appends (slot, value, rows, ms, adopted pages mapped) to
+    ``record``."""
+    fill = eng._fill_lane
+    dev = eng.device
+
+    def checked(slot, value):
+        rows, n_rows = lane_rows(eng, slot)
+        adopted = 0
+        if eng.paged:
+            al = eng.pages
+            adopted = sum(int(al._owner[p]) != slot
+                          for p in al.block_table[slot][: int(al._slot_pages[slot])])
+        before = [{n: x.clone() for n, x in seg.items()} for seg in eng.cache]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fill(slot, value)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            fill(slot, value)
+            ms = (time.perf_counter() - t0) * 1e3
+        hit = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+        hit[rows] = True
+        for seg, old in zip(eng.cache, before):
+            for name, x in seg.items():
+                for layer in range(x.shape[0]):
+                    moved = (x[layer].view(torch.uint8) != old[name][layer].view(torch.uint8))
+                    moved = moved.flatten(1).any(1)
+                    check(not bool((moved & ~hit).any()),
+                          f"fill of slot {slot} with {value} wrote {name} rows "
+                          f"{(moved & ~hit).nonzero().flatten().tolist()} of layer {layer}")
+                    if x.is_floating_point() and rows:
+                        got = x[layer][hit]
+                        ok = got.isnan().all() if value != value else (got == value).all()
+                        check(bool(ok), f"fill of slot {slot} with {value}: {name} of "
+                              f"layer {layer} not filled in rows {rows}")
+        del before
+        record.append((slot, value, rows, ms, adopted))
+
+    eng._fill_lane = checked
+
+
+def store_finite(eng):
+    """Nothing non-finite in the store's slot rows or pages; the sink row
+    and the trash page, where dead rows of a poisoned lane write, are left
+    out."""
+    n = eng.pages.n_pages if eng.paged else eng.n_slots
+    return all(bool(torch.isfinite(x[:, :n]).all()) for seg in eng.cache
+               for x in seg.values() if x.is_floating_point())
+
+
+def poison_drive(eng, requests, occurrences, level_fn=None):
+    """Serve ``requests`` (ServeRequests) through ``CarbonAwareScheduler``
+    on ``eng`` with ``decode.nonfinite`` armed at ``occurrences`` (lanes
+    consulted, in order), every fill checked (``checked_fills``). Returns
+    the scheduler, the poisoned rids, the quarantined rids (in order) and
+    the fills."""
+    from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.serving.scheduler import CarbonAwareScheduler
+    fills = []
+    checked_fills(eng, fills)
+    inj = FaultInjector(FaultPlan([FaultSpec("decode.nonfinite", "*",
+                                             occurrences=occurrences)]))
+    sched = CarbonAwareScheduler([eng], level_fn=level_fn, fault_injector=inj)
+    for req in requests:
+        sched.submit(req)
+    try:
+        sched.run()
+    finally:
+        del eng._fill_lane
+    poisoned = [int(e.target) for e in inj.events if e.point == "decode.nonfinite"]
+    caught = [st.rid for reason, st in sched.fault_events if reason == "decode.nonfinite"]
+    return sched, poisoned, caught, fills
+
+
+def ledger(eng):
+    """A page store's allocator state, for card == CPU."""
+    al = eng.pages
+    return (al.block_table.tolist(), al.refcount.tolist(), sorted(al._free),
+            sorted(al._index.values()), eng._committed, al.pinned)
+
+
+def small_faults(cfg, cpu_params, gpu_params):
+    """Lane poison and recovery on the reduced config (fp32 unless int8),
+    card against CPU: eight requests (directive levels 2, 1, 2, 0, ... so
+    the system prompts share pages) through ``CarbonAwareScheduler`` with
+    ``decode.nonfinite`` at occurrences (0, 3), on a dense engine
+    (whole-prompt and chunked 8), a paged engine (fp32 and int8) and a
+    paged engine with the prefix cache (chunked 4, so hits stream their
+    suffix while lanes decode), which must poison a lane that maps adopted
+    pages: there the second poison is the 25th lane consulted (occurrence
+    24, a hit admitted after the first wave; the first four consults are
+    the first wave's owners of the shared pages). On both devices: every request served, none rejected, every
+    poisoned lane caught, every fill lane-only (shared pages byte-equal
+    across the quarantine), nothing non-finite left at drain, the page
+    ledger clean. The card quarantines exactly the poisoned lanes (the
+    kernel reads only a lane's own pages; no poison here fills page 0
+    while a chunk pass runs, which would take the chunk lane down too:
+    ``small_chunk_collateral`` drives that). A dense engine's CPU run does
+    too, and card and CPU give the same tokens, quarantines and store. A
+    paged engine's CPU run may quarantine more: the plain attention, like
+    the reference's XLA path, reads unmapped table entries clamped to page
+    0 at masked positions, where 0 x NaN is NaN, so poisoning the holder of
+    page 0 takes down every lane of that block; the retried requests then
+    regenerate, so the tokens must still equal the card's, and where both
+    quarantined the same lanes the page ledgers must too."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.scheduler import ServeRequest
+    drives = {"dense": {}, "dense chunked": {"prefill_chunk": 8},
+              "paged": {"paged": True, "page_size": 16},
+              "paged int8": {"paged": True, "page_size": 16, "kv_int8": True},
+              "paged prefix cache": {"paged": True, "page_size": 16, "prefix_cache": True,
+                                     "prefill_chunk": 4}}
+    for drive, kw in drives.items():
+        occurrences = (0, 24) if kw.get("prefix_cache") else (0, 3)
+        runs = {}
+        for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
+            eng = InferenceEngine(cfg, params, n_slots=4, max_len=160, decode_block=4,
+                                  seed=SEED, device=dev, **kw)
+            levels = itertools.cycle((2, 1, 2, 0))
+            reqs = [ServeRequest(0, p, max_new_tokens=12 + 4 * (i % 4))
+                    for i, p in enumerate(PROMPTS[:8])]
+            sched, poisoned, caught, fills = poison_drive(eng, reqs, occurrences,
+                                                          lambda: next(levels))
+            runs[dev] = dict(
+                tokens={f.rid: f.token_ids for f in sched.finished}, poisoned=poisoned,
+                caught=caught, rejected=list(sched.rejected), fills=fills, eng=eng,
+                finite=store_finite(eng),
+                ledger=ledger(eng) if eng.paged else None,
+                retries={f.rid: f.retries for f in sched.finished})
+        card, cpu = runs["cuda"], runs["cpu"]
+        label = f"small faults reduced {cfg.name} {drive}"
+        for dev, r in runs.items():
+            check(len(r["tokens"]) == 8 and not r["rejected"],
+                  f"{label} {dev}: {len(r['tokens'])} of 8 served, rejected {r['rejected']}")
+            check(len(r["poisoned"]) == 2 and set(r["poisoned"]) <= set(r["caught"]),
+                  f"{label} {dev}: poisoned {r['poisoned']}, quarantined {r['caught']}")
+            check(r["finite"], f"{label} {dev}: non-finite values left in the store")
+            check(sum(v != v for _, v, *_ in r["fills"]) == 2
+                  and sum(v == 0.0 for _, v, *_ in r["fills"]) == len(r["caught"]),
+                  f"{label} {dev}: fills {[(sl, v) for sl, v, *_ in r['fills']]}")
+            if r["ledger"] is not None:
+                check(r["ledger"][4:] == (0, 0), f"{label} {dev}: ledger at drain "
+                      f"(committed, pinned) {r['ledger'][4:]}")
+        check(card["caught"] == card["poisoned"],
+              f"{label}: the card quarantined {card['caught']}, poisoned {card['poisoned']}")
+        check(card["tokens"] == cpu["tokens"], f"{label}: card and CPU tokens differ: "
+              f"{first_differences(card['tokens'], cpu['tokens'])}")
+        same = card["caught"] == cpu["caught"]
+        if not kw.get("paged"):
+            kpos_rows, err, flips = store_difference(card["eng"].cache, cpu["eng"].cache)
+            check(same and kpos_rows == 0 and err <= 1e-5,
+                  f"{label}: card quarantined {card['caught']}, CPU {cpu['caught']}; "
+                  f"store: {kpos_rows} kpos rows, max difference {err:.3e}")
+        elif same:
+            check(card["ledger"] == cpu["ledger"], f"{label}: page ledgers differ")
+        if "prefix" in drive:
+            check(any(f[4] > 0 for f in card["fills"] if f[1] != f[1]),
+                  f"{label}: no poisoned lane mapped adopted pages: {card['fills']}")
+        fill_ms = {dev: [round(f[3], 3) for f in r["fills"]] for dev, r in runs.items()}
+        print(f"{label}: 8 served on both, none rejected; poisoned {card['poisoned']}, "
+              f"quarantined on the card {card['caught']} (= the poisoned), on the CPU "
+              f"{cpu['caught']}; card == CPU tokens; retries card "
+              f"{sorted(card['retries'].values())} CPU {sorted(cpu['retries'].values())}; "
+              f"every fill lane-only, (slot, value, rows, adopted pages) "
+              f"{[(f[0], f[1], f[2], f[4]) for f in card['fills']]}; fill ms {fill_ms}; "
+              + ("store == CPU's" if not kw.get("paged") else
+                 "page ledger == CPU's" if same else
+                 "the CPU's plain attention quarantined more (page 0 read through an "
+                 "unmapped entry)"))
+    small_chunk_collateral(cfg, cpu_params, gpu_params)
+    if cfg.name.startswith("granite"):
+        small_chaos()
+
+
+def small_chunk_collateral(cfg, cpu_params, gpu_params):
+    """The chunk pass's collateral quarantine, card against CPU: a paged
+    engine (fp32, chunked 8) serves three requests, a fourth streams its
+    prompt in chunks, and while that prompt is partly written the live lane
+    that holds page 0 is poisoned. The chunk pass gathers the lane's pages
+    through the block table with unmapped entries clamped to page 0 and
+    masked by position, as the reference's does; a weight of 0 times NaN is
+    NaN, so the chunk lane's logits go non-finite too. Gates: the card
+    quarantines exactly the holder of page 0 and the chunk lane (the
+    kernels' decode lanes stay clean), the CPU at least those two, every
+    fill lane-only; the quarantined requests, resubmitted, finish and every
+    request's tokens equal the CPU's; nothing non-finite left at drain; the
+    page ledger clean."""
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    label = f"small chunk collateral reduced {cfg.name} paged fp32 chunked 8"
+    runs = {}
+    for params, dev in ((gpu_params, "cuda"), (cpu_params, "cpu")):
+        eng = InferenceEngine(cfg, params, n_slots=4, max_len=160, decode_block=4,
+                              seed=SEED, device=dev, paged=True, page_size=16,
+                              prefill_chunk=8)
+        fills = []
+        checked_fills(eng, fills)
+        for i, p in enumerate(PROMPTS[:3]):
+            eng.submit(tok.encode(p, bos=True), max_new_tokens=24 + 4 * i)
+        eng.step()
+        eng.submit(tok.encode(PROMPTS[2] + " " + PROMPTS[3], bos=True), max_new_tokens=12)
+        holder = None
+        for _ in range(40):
+            t = eng._task
+            if t is not None and 0 < t.next < t.plen:
+                holder = next((i for i in range(eng.n_slots) if i != t.slot and eng.live[i]
+                               and 0 in eng.pages.block_table[i]), None)
+                if holder is not None:
+                    break
+            eng.step()
+        check(holder is not None, f"{label} {dev}: no lane held page 0 while a prompt streamed")
+        poisoned = (eng.slots[holder].rid, eng.slots[eng._task.slot].rid)
+        eng.poison_lane(holder)
+        eng.step()
+        caught = sorted(st.rid for st in eng.faulted)
+        for st in eng.faulted:
+            eng.submit(st.prompt_ids, max_new_tokens=st.max_new_tokens, rid=st.rid)
+        eng.faulted = []
+        eng.run_to_completion()
+        del eng._fill_lane
+        runs[dev] = dict(poisoned=poisoned, caught=caught, fills=fills,
+                         tokens={f.rid: f.token_ids for f in eng.finished},
+                         finite=store_finite(eng), ledger=ledger(eng))
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(card["poisoned"] == cpu["poisoned"],
+          f"{label}: (holder, chunk lane) card {card['poisoned']}, CPU {cpu['poisoned']}")
+    check(card["caught"] == sorted(card["poisoned"]),
+          f"{label}: the card quarantined {card['caught']}, holder and chunk lane "
+          f"{card['poisoned']}")
+    check(set(card["poisoned"]) <= set(cpu["caught"]),
+          f"{label}: the CPU quarantined {cpu['caught']}")
+    for dev, r in runs.items():
+        check(len(r["tokens"]) == 4 and r["finite"] and r["ledger"][4:] == (0, 0),
+              f"{label} {dev}: {len(r['tokens'])} of 4 served, store finite {r['finite']}, "
+              f"ledger at drain {r['ledger'][4:]}")
+    check(card["tokens"] == cpu["tokens"], f"{label}: card and CPU tokens differ: "
+          f"{first_differences(card['tokens'], cpu['tokens'])}")
+    print(f"{label}: poisoned the holder of page 0 (rid {card['poisoned'][0]}) while rid "
+          f"{card['poisoned'][1]} streamed its prompt; quarantined on the card "
+          f"{card['caught']} (the chunk lane too), on the CPU {cpu['caught']}; "
+          f"4 served, card == CPU tokens; fills (slot, value, pages) "
+          f"{[(f[0], f[1], f[2]) for f in card['fills']]}")
+
+
+def small_chaos():
+    """Sprout's paired chaos scenario (``repro_torch.serving.chaos``:
+    reduced granite, dense engines, every fault class, two lanes poisoned)
+    on the card and on the CPU, on the port's seed-0 weights drawn on the
+    CPU: every ``check_pair`` invariant holds on the card, and the card's
+    report and digest equal the CPU's."""
+    from repro_torch.serving import chaos as C
+    cfg, cpu_params = C.build_model("cpu")
+    gpu_params = to_device(cpu_params, "cuda")
+    t0 = time.monotonic()
+    card = C.run_chaos(cfg, gpu_params)
+    t1 = time.monotonic()
+    cpu = C.run_chaos(cfg, cpu_params)
+    t2 = time.monotonic()
+    failed = [k for k, ok in card["checks"].items() if not ok]
+    check(len(card["checks"]) == 12 and not failed, f"chaos on the card: failed {failed}")
+    diff = [k for side in ("control", "chaos") for k in card[side]
+            if card[side][k] != cpu[side][k]]
+    check(card == cpu, f"chaos: the card's report differs from the CPU's in {diff}")
+    ch = card["chaos"]
+    print(f"small chaos ({cfg.name}, dense engines): every check_pair invariant on the "
+          f"card; report == CPU's, digest {card['digest']}; served {ch['served']}, "
+          f"faults {ch['faults']}, shed {ch['shed']}, plan holds {ch['plan_holds']}, "
+          f"injected {[e[0] + '@' + e[1] for e in ch['injected']]}; card {t1 - t0:.1f} s, "
+          f"CPU {t2 - t1:.1f} s")
 
 
 def store_difference(card, cpu):
@@ -1184,8 +1600,9 @@ def graph_against_eager(eng, label):
             out_g = run()
             torch.cuda.synchronize()
             graph_ms = (time.monotonic() - t0) * 1e3
-            k = (out_g.shape[0] - 1) // 2
-            parts = {"toks": slice(0, k), "valid": slice(k, 2 * k), "live_final": slice(2 * k, None)}
+            k = (out_g.shape[0] - 2) // 2
+            parts = {"toks": slice(0, k), "valid": slice(k, 2 * k), "live_final": slice(2 * k, 2 * k + 1),
+                     "ok": slice(2 * k + 1, None)}
             out_diff = [part for part, sl in parts.items()
                         if not torch.equal(out_e[sl], out_g[sl])]
             # every page but the trash page (the last), which no table maps,
@@ -1578,19 +1995,20 @@ def mixed_full_against_eager(eng, label):
           f"{label}: the compared block ran {name}, not a mixed _full entry")
 
 
-def scheduler_drive(eng, sampled=False):
+def scheduler_drive(eng, sampled=False, injector=None):
     """One drive of the main path's traffic: the 12 prompts through
     ``CarbonAwareScheduler`` on ``eng``, which renders each drawn directive
     level as the system prompt and caps the budget (64/48/32). The mix is
     uniform, as the serving launcher draws before the LP has level
     profiles, from one seed, so every drive sees the same levels, budgets
     and shapes. ``sampled``: request i carries the i % 3-th of
-    ``sampling_modes``. Returns the scheduler and the drive's wall
-    seconds."""
+    ``sampling_modes``. ``injector``: the scheduler's fault injector.
+    Returns the scheduler and the drive's wall seconds."""
     from repro_torch.serving.scheduler import CarbonAwareScheduler, ServeRequest
     modes = list(sampling_modes().values())
     rng = np.random.default_rng(0)
-    sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)))
+    sched = CarbonAwareScheduler([eng], level_fn=lambda: int(rng.choice(3)),
+                                 fault_injector=injector)
     for i, p in enumerate(PROMPTS):
         sched.submit(ServeRequest(0, p, max_new_tokens=64, max_new_by_level=(64, 48, 32),
                                   sampling=modes[i % 3] if sampled else modes[0]))
@@ -1630,7 +2048,7 @@ def in_order(sched):
 
 
 def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=False,
-          paged=True):
+          paged=True, faults=False):
     """One main-path run: 12 requests through the scheduler, driven once to
     build the entry table (every wrapper call of a capture runs here, and
     no plain version may) and again, with the table frozen, to measure.
@@ -1646,7 +2064,8 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=Fal
     attention is plain PyTorch, so paged attention must launch 0 times; a
     whole-prompt run also runs a bucketed block (3 lanes of 8) graph
     against eager (``bucketed_against_eager``), and both time the dense
-    attention against its bound (``dense_attention``)."""
+    attention against its bound (``dense_attention``). ``faults``: then
+    one drive more with lanes poisoned (``fault_drive``)."""
     from repro_torch.serving import prng
     from repro_torch.serving.engine import InferenceEngine
     layout = dict(paged=True, page_size=32) if paged else {}
@@ -1731,7 +2150,99 @@ def serve(cfg, params, kv_int8, prefill_chunk, kernels, plain_calls, sampled=Fal
     if not paged:
         dense_decode_check(eng, label)
         dense_attention(eng, label)
-    return launches, {f.rid: f.token_ids for f in fin}
+    streams = {f.rid: f.token_ids for f in fin}
+    if faults:
+        t0 = time.monotonic()
+        for name, n in fault_drive(eng, label, streams, kernels, plain_calls).items():
+            launches[name] += n
+        print(f"faults {label}: {time.monotonic() - t0:.1f} s")
+    return launches, streams
+
+
+def fault_drive(eng, label, clean, kernels, plain_calls):
+    """The main path's traffic once more on the served engine, with
+    ``decode.nonfinite`` armed at occurrences (0, 5): the lanes consulted
+    first and sixth are filled with NaN. Gates: the in-block verdict
+    quarantines exactly the poisoned lanes; every request is served, none
+    rejected; each fill writes only its lane (right after each quarantine
+    the lane's pages or row read 0 in every float leaf, every other page or
+    row byte-equal; ``checked_fills``); nothing non-finite left at drain;
+    launches held to the forward passes and to the kernel nodes the
+    replays ran (entries built here included), no plain call. Prints the
+    share of untouched streams equal to ``clean`` (the measured drive's),
+    the retried ones against theirs, and the poison and scrub times.
+    Returns the drive's launches."""
+    from repro_torch.serving import prng
+    from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultSpec
+    inj = FaultInjector(FaultPlan([FaultSpec("decode.nonfinite", "*", occurrences=(0, 5))]))
+    fills = []
+    checked_fills(eng, fills)
+    for kern in kernels.values():
+        kern.launches = 0
+    plain_calls.clear()
+    groups0, steps0, passes0 = eng.prefill_groups, eng.steps, eng.chunk_passes
+    syncs0, entries0 = eng.decode_syncs, len(eng.entry_points)
+    replays = {}
+    eng.key = prng.PRNGKey(SEED)
+    try:
+        with counted_entry_runs(replays):
+            sched, wall = scheduler_drive(eng, injector=inj)
+    finally:
+        del eng._fill_lane
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    plain = dict(plain_calls)
+    poisoned = [int(e.target) for e in inj.events if e.point == "decode.nonfinite"]
+    caught = [st.rid for reason, st in sched.fault_events if reason == "decode.nonfinite"]
+    tag = f"faults {label}"
+    check(len(poisoned) == 2 and caught == poisoned,
+          f"{tag}: poisoned {poisoned}, quarantined {caught}")
+    check(not sched.rejected and len(sched.finished) == len(PROMPTS),
+          f"{tag}: {len(sched.finished)} served, rejected {sched.rejected}")
+    check([v != v for _, v, *_ in fills].count(True) == len(poisoned)
+          and [v == 0.0 for _, v, *_ in fills].count(True) == len(caught),
+          f"{tag}: fills {[(sl, v) for sl, v, *_ in fills]}")
+    check(store_finite(eng), f"{tag}: non-finite values left in the store at drain")
+    check(not eng.paged or (eng._committed, eng.pages.pages_in_use()) == (0, 0),
+          f"{tag}: pages held at drain")
+    groups, steps = eng.prefill_groups - groups0, eng.steps - steps0
+    passes = eng.chunk_passes - passes0
+    want = expected_launches(eng.cfg.n_layers, groups, steps, passes, eng.paged)
+    check(launches == want, f"{tag}: launches {launches} != expected {want}")
+    check_graph_nodes(eng, tag)
+    ran = graph_launches(replays)
+    check(ran == launches, f"{tag}: its replays ran kernels {ran}; counted {launches}")
+    check(sum(plain.values()) == 0, f"{tag}: plain versions called: {plain}")
+    fin = {f.rid: f for f in sched.finished}
+    retried = sorted(rid for rid, f in fin.items() if f.retries)
+    untouched = [rid for rid in fin if rid not in poisoned]
+    equal = sum(fin[rid].token_ids == clean.get(rid) for rid in untouched)
+    poison_ms = [round(f[3], 3) for f in fills if f[1] != f[1]]
+    scrub_ms = [round(f[3], 3) for f in fills if f[1] == 0.0]
+    # the verdict's own work a step, as a block's graph runs it: isfinite
+    # and all over the lanes' logits, folded into the carried verdict; and
+    # the greedy full-bucket block's kernel nodes a step
+    logits = torch.randn(eng.n_slots, eng.cfg.vocab_size, device="cuda").to(
+        eng.params["embed"]["tok"].dtype)
+    ok = torch.ones(eng.n_slots, dtype=torch.bool, device="cuda")
+    live = ok.clone()
+    verdict_ms = cuda_ms(lambda: ok & (torch.isfinite(logits).all(-1) | ~live))
+    greedy = eng.entry_points.get(f"decode_bs{eng.n_slots}_k{eng.decode_block}_greedy")
+    nodes = (graph_kernel_nodes(greedy)["all"] / eng.decode_block if greedy is not None
+             else "not built")
+    print(f"{tag}: 12 served, none rejected; poisoned rids {poisoned} = quarantined "
+          f"{caught}; retried {retried} ({[fin[r].retries for r in retried]} retries); "
+          f"{equal} of {len(untouched)} untouched streams equal to the measured drive's; "
+          f"poisoned requests' tokens equal to their clean ones: "
+          f"{[fin[r].token_ids == clean.get(r) for r in poisoned]}; fills lane-only, "
+          f"(slot, value, rows) {[(f[0], f[1], len(f[2])) for f in fills]}; poison ms "
+          f"{poison_ms}, scrub ms {scrub_ms}; {eng.decode_syncs - syncs0} syncs for "
+          f"{groups} prefill groups and {steps} decode steps; entries built here "
+          f"{len(eng.entry_points) - entries0}; launches {launches} (= expected = the "
+          f"replays' kernel nodes), plain calls {plain or 0}; wall {wall:.3f} s; the "
+          f"verdict alone {verdict_ms:.4f} ms a step over ({eng.n_slots}, "
+          f"{eng.cfg.vocab_size}) logits; the greedy block's graph {nodes} kernel nodes "
+          f"a step")
+    return launches
 
 
 def bucketed_against_eager(eng, label):
@@ -2191,6 +2702,11 @@ CLI_ARGV = ["--gateway", "--paged", "--prefix-cache", "--regions", "CA,TX",
 # the same without --paged (and so without --prefix-cache): dense engines,
 # as the CLI serves by default
 CLI_ARGV_DENSE = [a for a in CLI_ARGV if a not in ("--paged", "--prefix-cache")]
+# the reference's chaos drive (one fault of every class against CA, lanes
+# poisoned on the engines, CA's replica crashed; --migrate so a migration's
+# destination can vanish), paged and dense
+CLI_ARGV_CHAOS = ["--gateway", "--paged", "--chaos", "--migrate"] + CLI_ARGV[3:]
+CLI_ARGV_CHAOS_DENSE = [a for a in CLI_ARGV_CHAOS if a != "--paged"]
 
 
 @contextlib.contextmanager
@@ -2222,11 +2738,14 @@ def cli_phase(kernels, plain_calls, argv):
     the kernel nodes their replays ran, and no plain version may run. Its
     lines must show every hour, 0 rejected, and a solved plan; with no
     ``--arch`` it serves the default, the paper's llama2-13b; with
-    ``--prefix-cache`` it must serve prefill from cached pages. Returns
-    each kernel's launches."""
+    ``--prefix-cache`` it must serve prefill from cached pages; with
+    ``--chaos`` it must print the ``chaos:`` line, recover at least one
+    fault and leave nothing stranded (a replica benched by the crash still
+    counts its forward passes). Returns each kernel's launches."""
     from repro_torch.launch import serve as cli
     paged, prefix = "--paged" in argv, "--prefix-cache" in argv
-    tag = "cli" if paged else "cli dense"
+    chaos = "--chaos" in argv
+    tag = ("cli" if paged else "cli dense") + (" chaos" if chaos else "")
     for kern in kernels.values():
         kern.launches = 0
     plain_calls.clear()
@@ -2253,7 +2772,19 @@ def cli_phase(kernels, plain_calls, argv):
           f"{tag}: {st.requests} accounted, rejected {st.rejected_reasons}")
     solvers = sorted({p.solver for p in st.plans})
     check(set(solvers) - {"warmup"}, f"{tag}: no hour ran a solved plan: {solvers}")
-    engines = [eng for pool in gw.pools for eng in pool.scheduler.engines]
+    if chaos:
+        line = [ln for ln in lines if ln.startswith("chaos: injected[")]
+        stranded = sum(p.load() for p in gw.pools)
+        check(len(line) == 1 and st.faults >= 1 and stranded == 0,
+              f"{tag}: chaos line {line}, {st.faults} faults recovered, {stranded} "
+              "requests stranded")
+    # every engine: those serving, and any still benched by a crash
+    engines = []
+    for pool in gw.pools:
+        sched = pool.scheduler
+        for eng in list(sched.engines) + [h.engine for h in sched.health.values()]:
+            if eng is not None and all(eng is not e for e in engines):
+                engines.append(eng)
     cfg = engines[0].cfg
     check(cfg.name == "llama2-13b" and all(eng.cfg == cfg for eng in engines),
           f"{tag}: served {[eng.cfg.name for eng in engines]}, not the default llama2-13b")
@@ -2378,7 +2909,7 @@ def serve_phase():
                 for kv_int8, chunk, sampled, paged in runs:
                     launches, streams[kv_int8, chunk, sampled, paged] = serve(
                         cfg, params, kv_int8, chunk, kernels, plain_calls, sampled,
-                        paged)
+                        paged, faults=main_path and not chunk and not sampled)
                     for name, n in launches.items():
                         totals[name] += n
                     free_device_memory()    # the run's engine and its graphs
@@ -2400,12 +2931,13 @@ def serve_phase():
                 del params
                 free_device_memory()
                 phase_memory(f"serve {cfg.name}", t0)
-            for argv in (CLI_ARGV, CLI_ARGV_DENSE):
+            for argv in (CLI_ARGV, CLI_ARGV_DENSE, CLI_ARGV_CHAOS, CLI_ARGV_CHAOS_DENSE):
                 t0 = time.monotonic()
                 for name, n in cli_phase(kernels, plain_calls, argv).items():
                     totals[name] += n
                 free_device_memory()        # the CLI's weights and engines
-                phase_memory("cli" + ("" if "--paged" in argv else " dense"), t0)
+                phase_memory("cli" + ("" if "--paged" in argv else " dense")
+                             + (" chaos" if "--chaos" in argv else ""), t0)
     finally:
         for name, fn in originals.items():
             setattr(ref, f"{name}_ref", fn)
@@ -2458,6 +2990,12 @@ def main():
             print(f"build: SASS HMMA count {n} in {fn}")
     t0 = time.monotonic()
     paged_rows = paged_phase()
+    t1 = time.monotonic()
+    poison_splits = paged_poison_phase()
+    check(poison_splits[0] == 1 and poison_splits[-1] > 1,
+          f"poisoned-slot checks ran at n_splits {poison_splits}, not one and several")
+    print(f"kernel paged_attention poisoned slots: n_splits {poison_splits}; "
+          f"{time.monotonic() - t1:.1f} s")
     rms_rows = rmsnorm_phase()
     flash_rows = flash_phase()
     phase_memory("kernel", t0)

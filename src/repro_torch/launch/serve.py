@@ -21,16 +21,18 @@ routed to the greenest pool under a load cap. ``--tenants``, ``--slo``,
 ``--migrate``, ``--forecast-horizon`` and ``--drain-at`` act as in the
 reference (DESIGN.md §8, §10). ``--prefix-cache`` (with ``--paged``)
 serves the shared directive system prompts from indexed pages (DESIGN.md
-§13). Accounting is the reference's: the
+§13). ``--chaos`` arms the reference's default fault script (DESIGN.md
+§12: one fault of every class against the first pool, lanes poisoned on
+the engines) and prints the recovery counters. Accounting is the
+reference's: the
 ``LLAMA2_13B`` profile priced on ``A100_40GB`` with modeled (not wall)
 decode time.
 
 Flags the port cannot serve yet raise ``NotImplementedError`` when the
-arguments are parsed, each naming its ROADMAP.md item: ``--chaos`` and
-``--tp-degree`` above 1; so does an architecture the port does not hold.
-``--prefix-cache`` without ``--paged`` raises ``ValueError``: the
-reference's flag requires ``--paged``, and the port drops no flag. The
-reference's ``chaos_plan`` returns with fault injection.
+arguments are parsed, naming their ROADMAP.md item: ``--tp-degree`` above
+1, and an architecture the port does not hold. ``--prefix-cache`` without
+``--paged`` raises ``ValueError``: the reference's flag requires
+``--paged``, and the port drops no flag.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ from repro_torch.core.carbon import WatchdogProvider
 from repro_torch.core.policies import LevelProfiles, SproutPolicy
 from repro_torch.models import model as MD
 from repro_torch.models.common import resolve_device
-from repro_torch.serving import (CarbonAwareScheduler, InferenceEngine,
+from repro_torch.serving import (CarbonAwareScheduler, FaultInjector,
+                                 FaultPlan, FaultSpec, InferenceEngine,
                                  MigrationPlanner, ServeRequest,
                                  SproutGateway, no_faults, serve_request_from)
 
@@ -70,6 +73,22 @@ def tenant_specs(slo: bool) -> tuple:
                  for t in DEFAULT_TENANTS)
 
 
+def chaos_plan(regions) -> FaultPlan:
+    """The CLI's default chaos script: one fault of every class a plain
+    --gateway run can reach, aimed at the first pool so the others keep
+    absorbing its recovered work."""
+    r0 = regions[0]
+    return FaultPlan([
+        FaultSpec("carbon.nan", r0, occurrences=(0,)),
+        FaultSpec("carbon.stale", r0, occurrences=(1,)),
+        FaultSpec("carbon.exception", r0, occurrences=(2,)),
+        FaultSpec("lp.fail", r0, occurrences=(0,)),
+        FaultSpec("decode.nonfinite", "*", occurrences=(0,)),
+        FaultSpec("replica.crash", f"{r0}/0", occurrences=(2,)),
+        FaultSpec("migrate.dst_vanish", "*", occurrences=(0,)),
+    ])
+
+
 def grid_provider(region: str, args) -> CarbonIntensityProvider:
     """Trace-backed by default; --grid-provider switches to the live
     Electricity Maps / WattTime client (tokenless = immediate trace
@@ -86,11 +105,10 @@ def run_gateway(args, cfg, params) -> SproutGateway:
     regions = [r.strip() for r in args.regions.split(",") if r.strip()]
     workload = Workload(seed=0)
     evaluator = QualityEvaluator(sample_size=200)
-    # --chaos raises at parsing until fault injection is ported (ROADMAP.md
-    # item 4), so no fault is ever armed here
-    injector = no_faults()
-    # the watchdog wraps every feed (live or trace): staleness aging and
-    # last-good fallback
+    injector = (FaultInjector(chaos_plan(regions), seed=args.chaos_seed)
+                if args.chaos else no_faults())
+    # the watchdog wraps every feed (live or trace): staleness aging,
+    # last-good fallback, and the chaos injection points for --chaos
     providers = [WatchdogProvider(grid_provider(r, args),
                                   fault_injector=injector)
                  for r in regions]
@@ -178,6 +196,13 @@ def run_gateway(args, cfg, params) -> SproutGateway:
           f"({1000 * st.carbon_per_request:.3f} mg/req, "
           f"{st.rejected} rejected, {st.migrated} migrated)")
     print(f"level mix: {np.round(st.level_counts / max(st.requests, 1), 3)}")
+    if args.chaos:
+        inj = " ".join(f"{e.point}@{e.target}" for e in injector.events)
+        wd = sum(sum(p.provider.faults.values()) for p in gw.pools
+                 if hasattr(p.provider, "faults"))
+        print(f"chaos: injected[{inj}]  recovered_faults={st.faults}  "
+              f"watchdog_faults={wd}  plan_holds={st.plan_holds}  "
+              f"shed={st.shed}  wasted={st.wasted_g:.4f}g")
     if tenants:
         att = " ".join(f"{name}={st.slo_attainment(name):.0%}"
                        f"({st.tenant_requests.get(name, 0)})"
@@ -214,15 +239,10 @@ def refuse_unported(args) -> None:
             f"--arch {args.arch}: the port serves {ARCH_IDS} so far "
             f"(ROADMAP.md, modules still to port: item 10, other families "
             f"(layernorm, GELU, biases, sliding window))")
-    for on, flag, item in (
-            (args.chaos, "--chaos", "4, fault injection (its decode.nonfinite "
-             "fault needs poison_lane)"),
-            (args.tp_degree > 1, f"--tp-degree {args.tp_degree}",
-             "7, tensor-parallel decode")):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: not in the port yet (ROADMAP.md, modules still to "
-                f"port: item {item})")
+    if args.tp_degree > 1:
+        raise NotImplementedError(
+            f"--tp-degree {args.tp_degree}: not in the port yet (ROADMAP.md, "
+            f"modules still to port: item 7, tensor-parallel decode)")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -295,8 +315,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="tensor-parallel sharding per engine (not in the "
                          "port yet: above 1 raises)")
     ap.add_argument("--chaos", action="store_true",
-                    help="arm the default fault-injection script (not in "
-                         "the port yet: raises)")
+                    help="arm the default fault-injection script (one "
+                         "fault of every class aimed at the first pool) "
+                         "and report recovery counters (--gateway only)")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="FaultInjector seed for --chaos")
     ap.add_argument("--grid-provider", default="trace",

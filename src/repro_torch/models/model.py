@@ -331,8 +331,15 @@ def decode_sample_step(cfg: ModelConfig, params, tokens, positions, cache,
     layer passes its sampler, so models/ stays independent of serving/).
     ``fold_ids`` (B,) overrides the sampler's per-row fold, so a bucketed
     caller folds by slot id. A greedy caller passes ``key=None`` and
-    ``sampling=()``. Returns the next tokens (B,)."""
+    ``sampling=()``.
+
+    Returns the next tokens (B,) and each row's finiteness verdict ``ok``
+    (B,) bool, ``isfinite(logits).all(-1)`` on the logits before the draw
+    (the reference's ``with_ok=True``): the engine catches a poisoned lane
+    inside the block, and the verdict leaves with the block's one
+    device-to-host copy."""
     logits = forward(cfg, params, tokens, mode="decode", positions=positions,
                      cache=cache, block_table=block_table, live=live,
                      rows=rows, in_place=in_place)
-    return sample_fn(logits, key, *sampling, fold_ids=fold_ids)
+    toks = sample_fn(logits, key, *sampling, fold_ids=fold_ids)
+    return toks, torch.isfinite(logits).all(-1)

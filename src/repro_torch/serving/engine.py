@@ -79,8 +79,20 @@ CUDA graph, captured at its first use and replayed after
 Host bookkeeping (admission, page growth, chunk schedule, finish order,
 block tables) follows the reference line for line, so on the same traffic
 the port fills the same rows or maps the same pages and emits the same
-tokens, greedy or seeded. Still to port (ROADMAP.md): tensor parallelism
-and fault injection into lanes.
+tokens, greedy or seeded.
+
+**Faults** (DESIGN.md §12): ``poison_lane`` fills a lane's K/V with NaN
+(its row on a dense store, its exclusive pages on a page store), so the
+next block's logits for that lane are truly non-finite. Each step of a
+block folds ``isfinite(logits)`` into a sticky per-lane verdict (dead
+lanes do not count; a dispatched chunk pass counts for its lane), which
+leaves the graph with the block's one device-to-host copy. The host then
+quarantines a lane whose verdict is False: its tokens stay on the request
+for the waste ledger, its K/V is scrubbed to 0, its slot and pages are
+released, and the request goes to ``faulted`` for the scheduler's
+bounded-retry requeue. Every fill runs in place between blocks, since the
+captured graphs hold the store's addresses. Still to port (ROADMAP.md):
+tensor parallelism.
 """
 from __future__ import annotations
 
@@ -256,8 +268,8 @@ class InferenceEngine:
         self.top_p = np.ones(n_slots, np.float32)
         self.queue: List[RequestState] = []
         self.finished: List[FinishedRequest] = []
-        # quarantined lanes; the port has no in-block finiteness verdict
-        # yet, so this stays empty (the scheduler still harvests it)
+        # lanes quarantined by the in-block finiteness verdict, harvested
+        # by the scheduler for its bounded-retry requeue
         self.faulted: List[RequestState] = []
         # high-water marks, sampled at maximal residency inside step()
         self.peak_concurrent = 0
@@ -629,8 +641,11 @@ class InferenceEngine:
         (0-dim): step s runs the chunk pass of row s (length 0 past the
         last chunk), and on the final chunk samples the request's first
         token, flips the lane live and emits the token in-band. Returns
-        (2k + 1, bs) int64: the tokens of each step, which of them were
-        emitted, and the live mask after the block.
+        (2k + 2, bs) int64: the tokens of each step, which of them were
+        emitted, the live mask after the block, and each lane's finiteness
+        verdict (0 once a step of the block gave a live lane non-finite
+        logits, or a dispatched chunk pass gave the chunk lane non-finite
+        logits).
 
         ``mode`` is the host's choice of sampler over the bucket's rows:
         ``greedy`` has no sampler and no sampling input; ``temp`` and
@@ -671,6 +686,7 @@ class InferenceEngine:
                     # the chunk's store row (dense) or block-table row
                     chunk_row = at if paged else rows.index_select(0, at)
                 toks, emitted = [], []
+                ok = torch.ones(bs, dtype=torch.bool, device=live.device)
                 for s in range(k):
                     if sampled:
                         keys = prng.split(key, 3 if has_chunk else 2)
@@ -681,9 +697,11 @@ class InferenceEngine:
                     # lane writes dead or not, as in the reference
                     store = (dict(block_table=bt, live=live) if paged
                              else dict(rows=rows, in_place=not bucketed))
-                    nxt = MD.decode_sample_step(
+                    nxt, rowok = MD.decode_sample_step(
                         cfg, params, last[:, None], pos, cache, sk, sampling,
                         sample_fn, fold_ids=fold, **store)
+                    # sticky per-lane health; dead lanes' logits are scratch
+                    ok = ok & (rowok | ~live)
                     nxt = torch.where(live, nxt, last)
                     pos2 = torch.where(live, pos + 1, pos)
                     gc2 = torch.where(live, gc + 1, gc)
@@ -697,6 +715,10 @@ class InferenceEngine:
                         logits = MD.prefill_chunk_step(
                             cfg, params, ctoks[s], cpos0[s], clen[s], chunk_row,
                             cache, block_table=bt)
+                        # a dispatched chunk with non-finite logits marks
+                        # the chunk lane bad: its K/V is garbage already
+                        cok = (clen[s] == 0) | torch.isfinite(logits).all()
+                        ok = ok & (cok | ~at_lane)
                         # the first token and the lane's flip to live stay
                         # on the device; they reach the host with the block
                         first = sample_fn(logits[None], ck, *lane_sampling,
@@ -715,7 +737,7 @@ class InferenceEngine:
                     emitted.append(emit_v)
                     live, last, pos, gc = live2, nxt, pos2, gc2
                 return torch.cat([torch.stack(toks), torch.stack(emitted).long(),
-                                  live.long()[None]])
+                                  live.long()[None], ok.long()[None]])
 
             layout = {"last": ((bs,), 0), "pos": ((bs,), 0), "gc": ((bs,), 0),
                       "max_new": ((bs,), 1), "live": ((bs,), 0)}
@@ -881,13 +903,15 @@ class InferenceEngine:
         fn, warm = self._fused_for(k, mode, bs, chunk_c)
         t_dec = time.monotonic()
         out = fn(**inputs)
-        # the single device-to-host copy for this block of <= k*bs tokens
+        # the single device-to-host copy for this block of <= k*bs tokens;
+        # the per-lane finiteness verdict rides it
         block = out.cpu().numpy()
         # decode wall time for this dispatch; 0.0 when it built its entry,
         # so the straggler detector never samples a capture
         self.last_decode_s = (time.monotonic() - t_dec) if warm else 0.0
         toks_h, valid = block[:k], block[k:2 * k].astype(bool)
         live_final = block[2 * k].astype(bool)
+        ok_final = block[2 * k + 1].astype(bool)
         self.decode_syncs += 1
         self.steps += k
         if task is not None:
@@ -911,6 +935,13 @@ class InferenceEngine:
             news = [int(t) for t in toks_h[col, b]]
             st.decode_s += float(share[col].sum()) \
                 + dead_s * len(news) / total_valid
+            if not ok_final[b]:
+                # non-finite logits: the lane's tokens of this block stay on
+                # the request (the waste ledger charges them) and the lane
+                # is quarantined; no finish, no mirror advance
+                st.generated.extend(news)
+                self._quarantine(i, "decode.nonfinite")
+                continue
             st.generated.extend(news)
             n_decoded += len(news)
             self.decode_tokens += len(news)
@@ -925,7 +956,9 @@ class InferenceEngine:
             # chunk-task lane sits occupied but dead until its final chunk
             if not live_final[b] and news:
                 finish_order.append((int(np.nonzero(col)[0][-1]), i))
-        if task is not None:
+        # a quarantine above may have torn the chunk task down with its
+        # lane: advance the task only if it is still the one dispatched
+        if task is not None and self._task is task:
             i = task.slot
             task.next = nxt_p
             if finishing:
@@ -1002,11 +1035,72 @@ class InferenceEngine:
                 return st
         return None
 
+    # ------------------------------------------------------------------
+    def _fill_lane(self, slot: int, value: float) -> None:
+        """Constant-fill one lane's K/V with ``value`` in every float leaf
+        of every layer (K/V, or an int8 store's scales: non-finiteness
+        rides them; ``kpos`` and int8 codes stay). A dense engine fills the
+        slot's row, never the sink row. A paged engine fills the pages the
+        lane's table row maps, with the prefix cache only those it owns
+        alone (never a page another lane or the index can read), and never
+        the trash page. In place, eagerly between blocks, since every
+        captured graph holds the store's addresses; reads nothing back."""
+        if self.paged:
+            bt = self.pages.block_table[slot]
+            keep = bt >= 0
+            if self.prefix_cache:
+                keep &= self.pages.exclusive_pages(slot)
+            ids = torch.as_tensor(bt[keep].astype(np.int64), device=self.device)
+        for seg in self.cache:
+            for leaf in seg.values():
+                if not leaf.is_floating_point():
+                    continue
+                if self.paged:
+                    leaf.index_fill_(1, ids, value)
+                else:
+                    leaf[:, slot].fill_(value)
+
     def poison_lane(self, slot: int) -> None:
-        raise NotImplementedError(
-            "poison_lane: lane fault injection and in-block finiteness "
-            "detection are not in the port yet (ROADMAP.md, modules still "
-            "to port: fault injection)")
+        """Fault injection: fill a lane's K/V with NaN, so the next block's
+        logits for that lane are truly non-finite (a masked token's weight
+        is 0, and 0 * NaN is NaN through P·V). The in-block verdict, not
+        the injector, must then catch it."""
+        self._fill_lane(slot, float("nan"))
+
+    def _scrub_lane(self, slot: int) -> None:
+        """Zero a quarantined lane's K/V before its row or pages are
+        reused: NaN left there would reach the next occupant by the same
+        0 * NaN that made detection possible."""
+        self._fill_lane(slot, 0.0)
+
+    def _quarantine(self, slot: int, reason: str) -> None:
+        """Pull a poisoned lane out of service: drop its owned pages from
+        the prefix index, scrub its K/V, release its slot, pages and
+        admission reservation, reset the host mirrors, and hand the request
+        to ``faulted``. Its prompt ids are verbatim, so a retry regenerates
+        the same tokens."""
+        st = self.slots[slot]
+        assert st is not None
+        st.slot = -1
+        st.last_fault = reason
+        if self.prefix_cache:
+            # suspect content must never serve a later hit; adopted pages
+            # stay indexed (copy-on-write kept this lane from writing them)
+            self.pages.invalidate_slot(slot)
+        self._scrub_lane(slot)       # before release: needs the block table
+        self.slots[slot] = None
+        self.live[slot] = False
+        self.positions[slot] = 0
+        self.last_token[slot] = 0
+        self.gen_count[slot] = 0
+        if self._task is not None and self._task.slot == slot:
+            self._task = None
+        if self.paged:
+            self.pages.release(slot)
+            self._committed -= st.reserved_pages
+        st.reserved_pages = 0
+        st.cached_tokens = 0
+        self.faulted.append(st)
 
     # ------------------------------------------------------------------
     def kv_stats(self) -> Dict[str, float]:

@@ -31,7 +31,8 @@ def test_dense_capture_inputs_write_only_the_sink_row(models, kind, kv_int8):  #
     out = entry.run()
     assert _unchanged_but_trash(eng.cache, snap)
     if kind != "prefill":
-        assert not out[4:].any()               # nothing emitted, nothing live
+        assert not out[4:9].any()              # nothing emitted, nothing live
+        assert out[9].all()                    # dead lanes leave the verdict
 
 
 def test_dense_pad_row_writes_only_the_sink_row(models):  # noqa: F811
@@ -74,6 +75,7 @@ def test_dense_pad_row_writes_only_the_sink_row(models):  # noqa: F811
     bare = fused_for(k, "greedy", 3, 0)[0](
         **{n: v[:3] for n, v in inputs.items()}).numpy()
     np.testing.assert_array_equal(padded[:, :3], bare)
-    assert not padded[k:, 3].any()            # nothing emitted, dead after
+    assert not padded[k:2 * k + 1, 3].any()   # nothing emitted, dead after
+    assert padded[2 * k + 1].all()            # and every verdict finite
     for x, want in zip(_leaves(port.cache), after_padded):
         assert torch.equal(want[:, :-1], x[:, :-1])

@@ -115,13 +115,6 @@ def test_prefix_cache_is_served(models, kwargs):
     assert eng.kv_stats()["prefill_tokens_cached"] == 0
 
 
-def test_lane_poison_raises(models):
-    _, cfg, _, params = models
-    eng = InferenceEngine(cfg, params, paged=True, page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="poison_lane"):
-        eng.poison_lane(0)
-
-
 def test_allocator_copy_matches_reference_history():
     """The port's allocator (the reference's without the prefix cache)
     maps the same pages through an interleaved alloc/release history,

@@ -5,7 +5,8 @@ arguments and the same weights (the reference's params and their
 serve yet raise ``NotImplementedError`` naming their ROADMAP.md item, and
 nothing falls back from the card to the CPU. ``--prefix-cache`` serves,
 and without ``--paged`` raises; without ``--paged`` the CLI serves dense
-engines, as the reference's does."""
+engines, as the reference's does; ``--chaos`` prints the reference's
+recovery line on both layouts."""
 import jax
 import numpy as np
 import pytest
@@ -65,12 +66,11 @@ def test_run_gateway_prints_the_reference_lines(weights, extra, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--gateway", "--paged", "--chaos"], "item 4"),
     (["--gateway", "--paged", "--tp-degree", "2"], "item 7"),
     (["--paged", "--arch", "command_r_plus_104b"], "item 10"),
     (["--paged", "--arch", "deepseek_v2_lite"], "item 10"),
     (["--paged", "--arch", "starcoder2_15b"], "item 10.*sliding window"),
-], ids=["chaos", "tp-degree", "layernorm", "other", "windowed-dense"])
+], ids=["tp-degree", "layernorm", "other", "windowed-dense"])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         serve.parse_args(["--device", "cpu"] + argv)
@@ -97,6 +97,29 @@ def test_run_gateway_without_paged_prints_the_reference_lines(weights, extra, ca
     assert len(engines) == 2 and not any(e.paged for e in engines)
     assert all(e.kv_stats()["layout"] == "dense" for e in engines)
     assert all(e.chunked_admission == ("--prefill-chunk" in extra) for e in engines)
+
+
+@pytest.mark.parametrize("layout", [["--paged"], []], ids=["paged", "dense"])
+def test_chaos_prints_the_reference_lines(weights, layout, capsys):
+    """``--chaos`` arms the reference's default fault script (with
+    ``--migrate``, so every point can fire): both CLIs print the same
+    lines, the ``chaos:`` line included, and every request is served."""
+    jcfg, jp, cfg, params = weights
+    argv = [a for a in BASE if a != "--paged"] + layout
+    argv[argv.index("--hours") + 1] = "3"
+    args = serve.parse_args(argv + ["--chaos", "--migrate"])
+    jserve.run_gateway(args, jcfg, jp)
+    want = capsys.readouterr().out.splitlines()
+    gw = serve.run_gateway(args, cfg, params)
+    got = capsys.readouterr().out.splitlines()
+    assert got == want
+    chaos = next(ln for ln in got if ln.startswith("chaos: injected["))
+    assert "decode.nonfinite@" in chaos and "replica.crash@CA/0" in chaos
+    assert gw.stats.faults >= 1 and gw.stats.requests == 12
+    assert gw.stats.rejected == 0
+    engines = [e for pool in gw.pools for e in pool.scheduler.engines if e is not None]
+    assert all(e.paged == bool(layout) for e in engines)
+    assert sum(p.load() for p in gw.pools) == 0
 
 
 def test_prefix_cache_without_paged_raises():

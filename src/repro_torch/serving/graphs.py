@@ -85,7 +85,7 @@ class Entry:
         self.stage = torch.zeros(sum(sizes), dtype=torch.int64,
                                  pin_memory=dev.type == "cuda")
         self.buf = torch.zeros(sum(sizes), dtype=torch.int64, device=dev)
-        flat = self.stage.numpy()
+        flat = self.stage.numpy()  # noqa: SPL001 — a host (pinned) buffer
         self.host, self.inputs, self.dead = {}, {}, {}
         self.floats = set()        # float32 inputs, staged as int32 bits
         off = 0
